@@ -11,9 +11,8 @@ Phases, one or more lines each:
   2. build every kernel of the path (K1, csrc/velocity_rollout.cu) and print
      ptxas's registers and spills;
   3. hold K1 against its plain PyTorch version on the card at E = 4096
-     (batch_reset state, formation actions): T = 8 at atol 1e-5 on every
-     column, and T = 240 (5 s) for finiteness, |dpos| < 0.1 m (the float32
-     velocity budget) and the ground clamp;
+     (batch_reset state, formation actions): T = 8 and T = 240 (5 s) at atol
+     1e-5 on every column, and at T = 240 finiteness and the ground clamp;
   4. the main path through the user entry points, launch counts reset just
      before and read just after: batch_reset -> soa_from_state ->
      make_velocity_rollout (K1) -> soa_to_state -> compute_obs, at E = 4096
@@ -55,7 +54,10 @@ from gym_pybullet_drones_tpu_torch.ops.velocity_soa import (
     soa_consts,
     soa_from_state,
     soa_to_state,
+    motor_wrench_soa,
+    physics_substep_soa,
     velocity_step_soa,
+    velocity_target,
 )
 from gym_pybullet_drones_tpu_torch.runtime.rollout import batch_reset, make_batched_step
 
@@ -63,6 +65,9 @@ E = 4096
 T_SHORT, T_LONG, T_TIME = 8, 240, 4800
 REPEATS = 5
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
+# The float32 peak counts a fused multiply-add as two operations; K1 is built
+# with -fmad=false, so its own ceiling is half this rate. The bound below is
+# that of the function, for a kernel that fuses every multiply-add pair.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # Elementwise ops counted as one operation per element; clamp counts one per
@@ -111,14 +116,32 @@ class _OpCount(TorchDispatchMode):
         return func(*args, **kwargs)
 
 
-def flops_per_env_step(consts, cfg, sl):
+def _count(fn):
+    with _OpCount() as counter:
+        fn()
+    return counter.ops
+
+
+def ops_per_env(consts, cfg, sl, num_steps):
+    """Operations one env needs for a launch of ``num_steps`` control steps,
+    counted on the plain version's pieces without repeating loop-invariant
+    work: the action-only velocity target once per launch; per control step
+    the DSLPID pipeline and the motor wrench once (``velocity_step_soa`` with
+    no substeps, less the target), then ``steps_per_ctrl`` substeps."""
     one = {k: torch.zeros(1) for k in SOA_KEYS}
     one["qw"] = torch.ones(1)
     act = formation_actions(1, "cpu")
-    with _OpCount() as counter:
-        velocity_step_soa(consts, cfg.ctrl_timestep, cfg.pyb_timestep, cfg.steps_per_ctrl,
-                          sl, one, act["ax"], act["ay"], act["az"], act["amag"])
-    return sum(counter.ops.values()), dict(counter.ops)
+    a = (act["ax"], act["ay"], act["az"], act["amag"])
+    target = _count(lambda: velocity_target(sl, *a))
+    control = _count(lambda: velocity_step_soa(consts, cfg.ctrl_timestep, cfg.pyb_timestep,
+                                               0, sl, one, *a)) - target
+    wrench = motor_wrench_soa(consts, [one[k] for k in ("r0", "r1", "r2", "r3")])
+    substep = _count(lambda: physics_substep_soa(
+        consts, cfg.pyb_timestep, *(one[k] for k in SOA_KEYS[:13]), wrench))
+    per_step = control + Counter({k: cfg.steps_per_ctrl * v for k, v in substep.items()})
+    parts = {"target": target.total(), "control": control.total(),
+             "substep": substep.total(), "per_step": per_step.total()}
+    return target.total() + num_steps * per_step.total(), parts
 
 
 def event_ms(fn, repeats):
@@ -146,7 +169,7 @@ def main():
 
     # ---------------- 2. build ----------------
     t0 = time.perf_counter()
-    _build.build([KERNEL])
+    _build.build(KERNEL)
     print(f"[2] built {KERNEL} in {time.perf_counter() - t0:.1f} s", flush=True)
     for line in _build.ptxas_report(KERNEL).splitlines():
         print(f"[2]   {line.strip()}", flush=True)
@@ -172,7 +195,6 @@ def main():
         errs[k] = err
         if not err <= 1e-5:
             bad.append(f"{k}: {err:.3g} > 1e-05")
-    max_abs_err = max(errs.values())
     print(f"[3] K1 vs plain, E={E} T={T_SHORT}: max |err| per column "
           + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}), flush=True)
     if bad:
@@ -182,12 +204,15 @@ def main():
     torch.cuda.synchronize()
     if not all(bool(torch.isfinite(long_k[k]).all()) for k in SOA_KEYS):
         fail(f"K1 state is not finite after T={T_LONG}")
-    dpos = max(float((long_k[k] - long_p[k]).abs().max()) for k in ("px", "py", "pz"))
+    long_errs = {k: float((long_k[k] - long_p[k]).abs().max()) for k in SOA_KEYS}
     low = float(long_k["pz"].min())
-    print(f"[3] K1 vs plain, E={E} T={T_LONG}: finite, max |dpos| {dpos:.3g} m, "
-          f"min pz {low:.6f} (clamp {z_min})", flush=True)
-    if not dpos < 0.1:
-        fail(f"|dpos| {dpos} >= 0.1 m after T={T_LONG}")
+    print(f"[3] K1 vs plain, E={E} T={T_LONG}: finite, max |err| per column "
+          + json.dumps({k: float(f"{v:.3g}") for k, v in long_errs.items()})
+          + f", min pz {low:.6f} (clamp {z_min})", flush=True)
+    bad = [f"{k}: {v:.3g} > 1e-05" for k, v in long_errs.items() if not v <= 1e-5]
+    if bad:
+        fail(f"K1 disagrees with its plain version after T={T_LONG}: " + "; ".join(bad))
+    max_abs_err = max(*errs.values(), *long_errs.values())
     if not low >= np.float32(z_min):
         fail(f"a drone is below the ground clamp: pz {low} < {z_min}")
     if velocity_rollout_cuda.launches - before != 2:
@@ -257,8 +282,8 @@ def main():
     velocity_rollout_plain(*args, 2, soa0, action)  # warm-up
     torch.cuda.synchronize()
     p_ms = event_ms(lambda: velocity_rollout_plain(*args, T_TIME, soa0, action), 1)[0]
-    per_step, by_op = flops_per_env_step(consts, cfg, sl)
-    flops = per_step * E * T_TIME
+    per_env, parts = ops_per_env(consts, cfg, sl, T_TIME)
+    flops = per_env * E
     nbytes = (len(SOA_KEYS) + 4 + len(SOA_KEYS)) * 4 * E
     bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
     bound_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes"
@@ -266,8 +291,8 @@ def main():
           f"median {k_ms:.4f} ms, {E * T_TIME / (k_ms / 1e3):.6g} env-steps/s", flush=True)
     print(f"[5] plain version, same E and T, one run: {p_ms:.1f} ms "
           f"({E * T_TIME / (p_ms / 1e3):.6g} env-steps/s)", flush=True)
-    print(f"[5] bound: {per_step} ops per env-step ({json.dumps(by_op)}), "
-          f"{flops:.4g} ops / {PEAK_FP32_FLOPS:.3g} = {flops / PEAK_FP32_FLOPS * 1e3:.4g} ms; "
+    print(f"[5] bound: {per_env} ops per env for T={T_TIME} (ops per piece: "
+          f"{json.dumps(parts)}; FMA counts 2 in the peak), {flops:.4g} ops / {PEAK_FP32_FLOPS:.3g} = {flops / PEAK_FP32_FLOPS * 1e3:.4g} ms; "
           f"{nbytes} bytes / {PEAK_BYTES_PER_S:.3g} = {nbytes / PEAK_BYTES_PER_S * 1e3:.4g} ms; "
           f"bound {bound_ms:.4g} ms by {bound_by}; library_ms null (no PyTorch call "
           "computes this function)", flush=True)

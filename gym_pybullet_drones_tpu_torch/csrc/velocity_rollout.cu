@@ -24,7 +24,8 @@
 // without --use_fast_math (no __sinf, no approximate division) and with
 // -fmad=false, so every add and multiply rounds separately, as in the plain
 // PyTorch version: the closed loop amplifies every extra rounding
-// difference. (The plain version divides by host constants as true
+// difference. This halves the float32 ceiling against a build that fuses
+// multiply-add pairs, a price paid for bit parity. (The plain version divides by host constants as true
 // divisions too; see `_div` in ops/velocity_soa.py.) With the same libdevice
 // transcendentals on both sides, K1 and the plain version agree bit for bit
 // on the card. Clamps propagate NaN like torch.clamp, so a diverged env stays
@@ -253,8 +254,6 @@ velocity_rollout_kernel(const float* __restrict__ in, float* __restrict__ out,
 }
 
 }  // namespace
-
-extern "C" int velocity_rollout_num_consts() { return kNumConsts; }
 
 extern "C" int velocity_rollout(const void* in, void* out, long long E, const void* consts,
                                 int n_consts, int n_substeps, int num_steps, void* stream) {

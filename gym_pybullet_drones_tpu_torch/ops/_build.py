@@ -1,14 +1,11 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's CUDA kernels with ``nvcc`` into shared libraries for ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
 header, so one ``nvcc`` call builds it in seconds. The shared library goes
 into ``_build/`` beside the package (listed in ``.gitignore``), named by a
-hash of the source and the flags, at first use. Several sources build in
-parallel, one ``nvcc`` process each.
+hash of the source and the flags, at first use.
 """
 
-import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -43,33 +40,22 @@ def _paths(name: str):
     return src, stem + ".so", stem + ".log"
 
 
-def build(names) -> dict:
-    """Build every named kernel that is not built yet, all ``nvcc`` processes
-    started together. Returns {name: path of the shared library}; raises with
-    the compiler's output when a build fails."""
+def build(name: str) -> str:
+    """Build ``csrc/<name>.cu`` if it is not built yet and return the path of
+    its shared library; raises with the compiler's output when nvcc fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs, libs = {}, {}
-    for name in names:
-        src, lib, log = _paths(name)
-        libs[name] = lib
-        if os.path.exists(lib):
-            continue
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), tmp, lib, log)
-    failures = []
-    for name, (proc, tmp, lib, log) in procs.items():
-        output, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed for {name} (rc {proc.returncode}):\n{output}")
-            continue
-        with open(log, "w") as fh:
-            fh.write(output)
-        os.replace(tmp, lib)
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return libs
+    src, lib, log = _paths(name)
+    if os.path.exists(lib):
+        return lib
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):\n{proc.stdout}")
+    with open(log, "w") as fh:
+        fh.write(proc.stdout)
+    os.replace(tmp, lib)
+    return lib
 
 
 def ptxas_report(name: str) -> str:
@@ -79,8 +65,3 @@ def ptxas_report(name: str) -> str:
     with open(log) as fh:
         return fh.read()
 
-
-@functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<name>.cu``, built at first use."""
-    return ctypes.CDLL(build([name])[name])

@@ -14,6 +14,7 @@ package's layout at this boundary: a dict of (E,) float32 columns keyed by
 """
 
 import ctypes
+import functools
 from typing import Dict
 
 import torch
@@ -55,9 +56,10 @@ def _pack_consts(consts, ctrl_dt, pyb_dt, speed_limit):
     return (ctypes.c_float * len(vals))(*vals)
 
 
+@functools.cache
 def _library():
-    lib = _build.load(KERNEL)
-    fn = lib.velocity_rollout
+    """K1's C entry point, built at first use and typed once."""
+    fn = ctypes.CDLL(_build.build(KERNEL)).velocity_rollout
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -136,23 +136,31 @@ def physics_consts(dp: DroneParams) -> Dict[str, object]:
     )
 
 
-def physics_substep_soa(c: Dict[str, object], pyb_dt,
-                        px, py, pz, qx, qy, qz, qw,
-                        vx, vy, vz, wx, wy, wz, rpm):
-    """One Physics.PYB substep over SoA columns (the op sequence of
-    ``core/dynamics.substep_pyb`` without aero terms). ``rpm`` is a list of
-    four (E,) motor-speed columns."""
-    kf, km, yaw_sign = c["kf"], c["km"], c["yaw_sign"]
-    m_, g_ = c["m_"], c["g_"]
-    J, Jinv, offs, z_min = c["J"], c["Jinv"], c["offs"], c["z_min"]
-
-    r00, r01, r02, r10, r11, r12, r20, r21, r22 = _rot_cols_from_quat(qx, qy, qz, qw)
+def motor_wrench_soa(c: Dict[str, object], rpm):
+    """Total thrust and body torques (fsum, tau_x, tau_y, tau_z) from a list
+    of four (E,) motor-speed columns. They depend on the RPMs alone, so a
+    control step forms them once for all its substeps."""
+    kf, km, yaw_sign, offs = c["kf"], c["km"], c["yaw_sign"], c["offs"]
     f = [rpm[m] * rpm[m] * kf for m in range(4)]
     t_m = [rpm[m] * rpm[m] * km * yaw_sign for m in range(4)]
     tau_z = -t_m[0] + t_m[1] - t_m[2] + t_m[3]
     tau_x = f[0] * offs[0][1] + f[1] * offs[1][1] + f[2] * offs[2][1] + f[3] * offs[3][1]
     tau_y = -(f[0] * offs[0][0] + f[1] * offs[1][0] + f[2] * offs[2][0] + f[3] * offs[3][0])
     fsum = f[0] + f[1] + f[2] + f[3]
+    return fsum, tau_x, tau_y, tau_z
+
+
+def physics_substep_soa(c: Dict[str, object], pyb_dt,
+                        px, py, pz, qx, qy, qz, qw,
+                        vx, vy, vz, wx, wy, wz, wrench):
+    """One Physics.PYB substep over SoA columns (the op sequence of
+    ``core/dynamics.substep_pyb`` without aero terms). ``wrench`` is
+    ``motor_wrench_soa`` of the step's RPMs."""
+    m_, g_ = c["m_"], c["g_"]
+    J, Jinv, z_min = c["J"], c["Jinv"], c["z_min"]
+    fsum, tau_x, tau_y, tau_z = wrench
+
+    r00, r01, r02, r10, r11, r12, r20, r21, r22 = _rot_cols_from_quat(qx, qy, qz, qw)
     axw, ayw, azw = _div(r02 * fsum, m_), _div(r12 * fsum, m_), _div(r22 * fsum, m_) - g_
     nvx, nvy, nvz = vx + pyb_dt * axw, vy + pyb_dt * ayw, vz + pyb_dt * azw
 
@@ -203,6 +211,17 @@ def physics_substep_soa(c: Dict[str, object], pyb_dt,
     return (npx, npy, npz, nqx, nqy, nqz, nqw, nvx, nvy, nvz, nwx, nwy, nwz)
 
 
+def velocity_target(speed_limit, ax, ay, az, amag):
+    """The commanded velocity (tvx, tvy, tvz): the action's heading scaled to
+    ``speed_limit * |amag|``, zero for a zero heading. It depends on the
+    action alone."""
+    vnorm = torch.sqrt(ax * ax + ay * ay + az * az)
+    safe = torch.clamp(vnorm, min=1e-12)
+    fac = torch.where(vnorm > 0, speed_limit * torch.abs(amag) / safe,
+                      torch.zeros_like(vnorm))
+    return ax * fac, ay * fac, az * fac
+
+
 def velocity_step_soa(consts: Dict[str, object], ctrl_dt, pyb_dt,
                       n_substeps: int, speed_limit,
                       s: Dict[str, torch.Tensor],
@@ -235,11 +254,7 @@ def velocity_step_soa(consts: Dict[str, object], ctrl_dt, pyb_dt,
     cur_pitch = torch.asin(torch.clamp(-r20, -1.0, 1.0))
     cur_yaw = torch.atan2(r10, r00)
 
-    vnorm = torch.sqrt(ax * ax + ay * ay + az * az)
-    safe = torch.clamp(vnorm, min=1e-12)
-    fac = torch.where(vnorm > 0, speed_limit * torch.abs(amag) / safe,
-                      torch.zeros_like(vnorm))
-    tvx, tvy, tvz = ax * fac, ay * fac, az * fac
+    tvx, tvy, tvz = velocity_target(speed_limit, ax, ay, az, amag)
 
     # pos_e == 0 (target_pos = cur_pos, VelocityAviary.py:164); integrals are
     # clipped but unchanged, z twice (the generic clip, then its own).
@@ -293,10 +308,11 @@ def velocity_step_soa(consts: Dict[str, object], ctrl_dt, pyb_dt,
         rpm.append(scale * pwm + const)
 
     # ---------------- physics substeps (Physics.PYB) ----------------------
+    wrench = motor_wrench_soa(c, rpm)
     for _ in range(n_substeps):
         (px, py, pz, qx, qy, qz, qw, vx, vy, vz, wx, wy, wz) = (
             physics_substep_soa(c, pyb_dt, px, py, pz, qx, qy, qz, qw,
-                                vx, vy, vz, wx, wy, wz, rpm))
+                                vx, vy, vz, wx, wy, wz, wrench))
 
     return dict(
         px=px, py=py, pz=pz, qx=qx, qy=qy, qz=qz, qw=qw,

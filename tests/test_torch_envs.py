@@ -16,6 +16,7 @@ from gym_pybullet_drones_tpu_torch import convert
 from gym_pybullet_drones_tpu_torch.envs import base as tbase
 from gym_pybullet_drones_tpu_torch.envs import spec as tspec
 from gym_pybullet_drones_tpu_torch.runtime import rollout as troll
+from torch_parity import jit_reference
 
 # The JAX runtime package re-exports a function named `rollout` over its module.
 jroll = importlib.import_module("gym_pybullet_drones_tpu.runtime.rollout")
@@ -84,7 +85,7 @@ def test_env_step_matches_jax(case):
     (jp, jcp, jtgt), (tp, tcp, ttgt) = _bundle(jcfg, tcfg)
     jstate, tstate = jbase.reset(jcfg, jp), tbase.reset(tcfg, tp)
     _assert_state_close(tstate, jstate, 0)
-    jstep = jax.jit(lambda s, a: jbase.step(jcfg, jp, jcp, jtgt, s, a))
+    jstep = jit_reference(lambda s, a: jbase.step(jcfg, jp, jcp, jtgt, s, a))
     acts = _actions(np.random.RandomState(6), jcfg, 12)
     for a in acts:
         jstate, jobs, jr, jte, jtr = jstep(jstate, jnp.asarray(a))
@@ -100,7 +101,7 @@ def test_preprocessed_rpm_hook_matches_jax():
     jcfg, tcfg = _configs("hover", "ONE_D_RPM", 1, 30, 15)
     (jp, jcp, jtgt), (tp, tcp, ttgt) = _bundle(jcfg, tcfg)
     rpm = np.full((1, 4), 15000.0)
-    want = jax.jit(lambda s, r: jbase.step(jcfg, jp, jcp, jtgt, s, jnp.zeros((1, 2, 3)),
+    want = jit_reference(lambda s, r: jbase.step(jcfg, jp, jcp, jtgt, s, jnp.zeros((1, 2, 3)),
                                            preprocessed_rpm=r))(
         jbase.reset(jcfg, jp), jnp.asarray(rpm))
     got = tbase.step(tcfg, tp, tcp, ttgt, tbase.reset(tcfg, tp), torch.zeros((1, 2, 3)),
@@ -172,7 +173,7 @@ def test_make_batched_step_matches_jax(auto_reset):
     """E = 8 with one env at its time limit and one non-finite env: auto-reset,
     the NaN mask, final_obs and the persisted action buffer."""
     (jcfg, jp, jcp, jtgt, js), (tcfg, tp, tcp, ttgt, ts), E = _batched_case()
-    jstep = jax.jit(jroll.make_batched_step(jcfg, jp, jcp, jtgt, auto_reset=auto_reset))
+    jstep = jit_reference(jroll.make_batched_step(jcfg, jp, jcp, jtgt, auto_reset=auto_reset))
     tstep = troll.make_batched_step(tcfg, tp, tcp, ttgt, auto_reset=auto_reset)
     acts = np.random.RandomState(8).uniform(-1, 1, (4, E, 1, 1))
     for t, a in enumerate(acts):

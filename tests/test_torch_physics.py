@@ -22,6 +22,7 @@ from gym_pybullet_drones_tpu_torch.core import dynamics as tdyn
 from gym_pybullet_drones_tpu_torch.core import rotations as trot
 from gym_pybullet_drones_tpu_torch.core.params import drone_params
 from gym_pybullet_drones_tpu_torch.envs.spec import DroneModel, Physics
+from torch_parity import jit_reference
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 F64 = torch.float64
@@ -134,7 +135,7 @@ def test_step_physics_matches_jax(physics):
     hover = float(jp.hover_rpm)
     jlast = jnp.zeros((3, 4))
     tlast = torch.zeros((3, 4), dtype=F64)
-    jstep = jax.jit(lambda k, r, l: jdyn.step_physics(k, r, l, jp, 1 / 240, 5,
+    jstep = jit_reference(lambda k, r, l: jdyn.step_physics(k, r, l, jp, 1 / 240, 5,
                                                       JPhysics[physics]))
     for _ in range(10):
         rpm = hover * (1.0 + 0.05 * rng.uniform(-1, 1, (3, 4)))
@@ -169,8 +170,10 @@ def test_dsl_pid_control_matches_jax(model):
                 cur_vel=rng.normal(size=(n, 3)), target_pos=rng.normal(size=(n, 3)),
                 target_rpy=rng.uniform(-0.5, 0.5, (n, 3)),
                 target_vel=rng.normal(size=(n, 3)), target_rpy_rates=rng.normal(size=(n, 3)))
-    want = jax.jit(lambda s, a: jpid.dsl_pid_control(jcp, jpid.DSLPIDState(**s), 1 / 48, **a))(
-        {k: jnp.asarray(v) for k, v in st.items()}, {k: jnp.asarray(v) for k, v in args.items()})
+    jcontrol = jit_reference(
+        lambda s, a: jpid.dsl_pid_control(jcp, jpid.DSLPIDState(**s), 1 / 48, **a))
+    want = jcontrol({k: jnp.asarray(v) for k, v in st.items()},
+                    {k: jnp.asarray(v) for k, v in args.items()})
     got = tpid.dsl_pid_control(tcp, tpid.DSLPIDState(**{k: _t(v) for k, v in st.items()}),
                                1 / 48, **{k: _t(v) for k, v in args.items()})
     np.testing.assert_allclose(_n(got[0]), np.asarray(want[0]), rtol=1e-12, atol=1e-8)

@@ -18,6 +18,7 @@ from gym_pybullet_drones_tpu_torch.envs import base as tbase
 from gym_pybullet_drones_tpu_torch.ops import velocity_rollout as tro
 from gym_pybullet_drones_tpu_torch.ops import velocity_soa as tsoa
 from gym_pybullet_drones_tpu_torch.runtime import rollout as troll
+from torch_parity import jit_reference
 
 # The JAX runtime package re-exports a function named `rollout` over its module.
 jroll = importlib.import_module("gym_pybullet_drones_tpu.runtime.rollout")
@@ -55,7 +56,7 @@ def test_soa_float64_matches_general_jax_step():
     jcfg, tcfg, jp, jcp, tp, tcp, sl = _setup("float64")
     E, T = 64, 20
     a = _actions(0, E)
-    jstep = jax.jit(jroll.make_batched_step(jcfg, jp, jcp, jnp.zeros((1, 3)),
+    jstep = jit_reference(jroll.make_batched_step(jcfg, jp, jcp, jnp.zeros((1, 3)),
                                             auto_reset=False))
     js = jroll.batch_reset(jcfg, jp, E)
     for _ in range(T):
@@ -80,7 +81,7 @@ def test_soa_float32_matches_jax_soa():
     E, T = 64, 20
     a = _actions(0, E).astype(np.float32)
     jconsts = jsoa.soa_consts(jcp, jp)
-    jstep = jax.jit(lambda s, a: jsoa.velocity_step_soa(
+    jstep = jit_reference(lambda s, a: jsoa.velocity_step_soa(
         jconsts, jcfg.ctrl_timestep, jcfg.pyb_timestep, jcfg.steps_per_ctrl, sl, s,
         a[:, 0], a[:, 1], a[:, 2], a[:, 3]))
     js = jsoa.soa_from_state(jroll.batch_reset(jcfg, jp, E))
