@@ -54,6 +54,11 @@ def dsl_pid_params_from_numpy(d: dict, device=None, dtype=torch.float32) -> DSLP
     return _record(DSLPIDParams, d, dtype, device)
 
 
+def kin_state_from_numpy(d: dict, device=None, dtype=torch.float32) -> KinState:
+    """KinState from {field: numpy array}."""
+    return _record(KinState, d, dtype, device)
+
+
 def aviary_state_from_numpy(d: dict, device=None, dtype=torch.float32) -> AviaryState:
     """AviaryState from the flat dict of ``AVIARY_STATE_FIELDS``."""
     dtype, device = resolve_dtype(dtype), resolve_device(device)

@@ -11,8 +11,9 @@ Two physics pipelines, both semi-implicit Euler at ``1/pyb_freq``:
   (BaseAviary.py:349-367), gravity, Newton-Euler with gyroscopic coupling,
   and a plane-contact clamp.
 
-Drone-drone and obstacle contact (``collisions=True``) come with slice 2 (the
-coupled swarm); the sequential-impulse contact mode comes with slice 3.
+Drone-drone and obstacle contact (``collisions=True``) is the Jacobi
+projection of ``core/collisions.py``; the sequential-impulse contact mode
+comes with slice 3.
 Small matrix-vector products are written out term by term, in the order of
 the JAX package's expressions.
 """
@@ -23,6 +24,7 @@ import torch
 
 from gym_pybullet_drones_tpu_torch._struct import TensorStruct
 from gym_pybullet_drones_tpu_torch.core import aero
+from gym_pybullet_drones_tpu_torch.core.collisions import resolve_collisions
 from gym_pybullet_drones_tpu_torch.core.params import DroneParams
 from gym_pybullet_drones_tpu_torch.core.rotations import (
     cross,
@@ -130,6 +132,10 @@ def substep_pyb(
     dw: bool = False,
     contact: bool = True,
     renormalize_quat: bool = True,
+    dw_src_pos=None,
+    dw_force_body_z=None,
+    collide: bool = False,
+    obstacles=None,
 ) -> KinState:
     """One PyBullet-compatible substep with optional aero terms.
 
@@ -137,6 +143,13 @@ def substep_pyb(
     drag (from the previous substep's action, BaseAviary.py:359) and downwash
     act at the COM. PyBullet's ground contact is a plane clamp at the
     collision-cylinder bottom.
+
+    ``dw_src_pos`` gives the downwash other wake sources (default: the fleet
+    itself). ``dw_force_body_z`` (..., N) is a wake magnitude computed
+    elsewhere (the coupled swarm's pair kernels, ``runtime/swarm.py``); it
+    joins the force assembly exactly as the dense downwash term does.
+    ``collide`` and ``obstacles`` add the drone-drone and obstacle contact
+    pass of ``core/collisions.py`` after the plane clamp.
     """
     R = quat_to_matrix(state.quat)
     rpy = quat_to_euler_xyz(state.quat)
@@ -157,8 +170,11 @@ def substep_pyb(
     if drag:
         force_world = force_world + aero.drag_force_world(last_rpm, state.vel, params)
     if dw:
-        dw_mag = aero.downwash_forces_body_z(state.pos, params)
+        dw_mag = aero.downwash_forces_body_z(state.pos, params, pos_above=dw_src_pos)
         force_world = force_world + R[..., :, 2] * dw_mag[..., None]
+    if dw_force_body_z is not None:
+        # The same accel, and the same accel_z sign in the `pressed` test below.
+        force_world = force_world + R[..., :, 2] * dw_force_body_z[..., None]
 
     accel = force_world / params.m
     accel = torch.cat([accel[..., :2], accel[..., 2:] - params.g], -1)
@@ -185,6 +201,10 @@ def substep_pyb(
         pressed = below & (accel[..., 2] <= 0.0)
         new_ang_v = torch.where(pressed[..., None], torch.zeros_like(new_ang_v), new_ang_v)
 
+    if collide or obstacles is not None:
+        new_pos, new_vel = resolve_collisions(new_pos, new_vel, params.collision_r, obstacles,
+                                              drone_drone=collide)
+
     new_rpy_rates = _rot_t(quat_to_matrix(new_quat), new_ang_v)
     return KinState(pos=new_pos, quat=new_quat, vel=new_vel, ang_v=new_ang_v,
                     rpy_rates=new_rpy_rates)
@@ -210,6 +230,7 @@ def step_physics(
     *,
     renormalize_quat: bool = True,
     collisions: bool = False,
+    obstacles=None,
     contact_mode: str = "clamp",
 ):
     """Advance ``n_substeps`` physics substeps under one control action.
@@ -217,12 +238,10 @@ def step_physics(
     Mirrors the substep loop of BaseAviary.step (BaseAviary.py:343-372): the
     drag term of the first substep uses the previous control period's action
     (``last_rpm``); later substeps use the current one. Returns the new state
-    and the action to carry as ``last_rpm`` next period.
+    and the action to carry as ``last_rpm`` next period. ``collisions`` adds
+    drone-drone contact where the fleet has more than one drone;
+    ``obstacles`` (an ``ObstacleSet``) adds contact with static bodies.
     """
-    if collisions:
-        raise NotImplementedError(
-            "collisions=True (drone-drone and obstacle contact) comes with slice 2, "
-            "the coupled swarm")
     if contact_mode != "clamp":
         raise NotImplementedError(
             f"contact_mode={contact_mode!r} (sequential-impulse contact) comes with "
@@ -234,9 +253,11 @@ def step_physics(
                 state = state.replace(quat=quat_normalize(state.quat))
         return state, rpm
     flags = _PYB_FLAGS[physics]
+    collide = collisions and state.pos.shape[-2] > 1
     for _ in range(n_substeps):
         state = substep_pyb(state, rpm, last_rpm, params, dt,
-                            renormalize_quat=renormalize_quat, **flags)
+                            renormalize_quat=renormalize_quat, collide=collide,
+                            obstacles=obstacles, **flags)
         last_rpm = rpm
     return state, rpm
 

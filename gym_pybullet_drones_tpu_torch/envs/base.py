@@ -14,7 +14,7 @@ Every behavioral detail (action pipelines, 20-dim state vector, reward /
 termination rules, the 0.5 s action buffer of RL observations) follows the
 reference (envs/BaseAviary.py, CtrlAviary.py, VelocityAviary.py,
 BaseRLAviary.py, HoverAviary.py, MultiHoverAviary.py). RGB observations come
-with slice 4 and drone-drone / obstacle contact with slice 2.
+with slice 4.
 """
 
 import dataclasses
@@ -32,6 +32,7 @@ from gym_pybullet_drones_tpu_torch.control.dsl_pid import (
     dsl_pid_params,
     dsl_pid_reset,
 )
+from gym_pybullet_drones_tpu_torch.core.collisions import base_obstacles, rl_obstacles
 from gym_pybullet_drones_tpu_torch.core.dynamics import (
     KinState,
     init_kin_state,
@@ -74,8 +75,15 @@ class AviaryConfig:
     initial_xyzs: Optional[tuple] = None
     initial_rpys: Optional[tuple] = None
     dtype: str = "float32"
+    # Contact beyond the ground plane (core/collisions.py): drone-drone
+    # spheres, plus the scene's obstacles as static bodies when `obstacles`.
     collisions: bool = False
     contact_mode: str = "clamp"
+    # With `collisions`, contact with the scene's static bodies; the scene is
+    # "rl" (the four BaseRLAviary landmarks, :99-128) or "base" (BaseAviary's
+    # own scene, BaseAviary._addObstacles :958-981).
+    obstacles: bool = True
+    obstacle_scene: str = "rl"
     # Renormalize quaternions every substep (the reference's DYN pipeline
     # never does, so parity tests disable this).
     renormalize_quat: bool = True
@@ -86,9 +94,6 @@ class AviaryConfig:
         if self.obs_type == ObservationType.RGB:
             raise NotImplementedError(
                 "RGB observations (the ray-traced camera) come with slice 4")
-        if self.collisions:
-            raise NotImplementedError(
-                "collisions=True (drone-drone and obstacle contact) comes with slice 2")
 
     @property
     def steps_per_ctrl(self) -> int:
@@ -392,10 +397,14 @@ def step(
         rpm = torch.minimum(torch.clamp(rpm.reshape(batch + (cfg.num_drones, 4)), min=0.0),
                             params.max_rpm)
         new_ctrl = state.ctrl
+    obstacles = None
+    if cfg.collisions and cfg.obstacles:
+        scene = base_obstacles if cfg.obstacle_scene == "base" else rl_obstacles
+        obstacles = scene(cfg.torch_dtype, device)
     kin, last_rpm = step_physics(
         state.kin, rpm, state.last_rpm, params, cfg.pyb_timestep,
         cfg.steps_per_ctrl, cfg.physics, renormalize_quat=cfg.renormalize_quat,
-        collisions=cfg.collisions, contact_mode=cfg.contact_mode,
+        collisions=cfg.collisions, obstacles=obstacles, contact_mode=cfg.contact_mode,
     )
     state = state.replace(
         kin=kin,

@@ -12,6 +12,8 @@ expression over those tensors. The math mirrors, term for term:
 
 ``velocity_step_soa`` is the plain version of the rollout kernel K1
 (``csrc/velocity_rollout.cu``), which repeats this arithmetic per thread.
+``physics_substep_soa`` also carries the coupled swarm's substeps
+(``ops/swarm_soa.py``).
 """
 
 from typing import Dict
@@ -152,13 +154,18 @@ def motor_wrench_soa(c: Dict[str, object], rpm):
 
 def physics_substep_soa(c: Dict[str, object], pyb_dt,
                         px, py, pz, qx, qy, qz, qw,
-                        vx, vy, vz, wx, wy, wz, wrench):
+                        vx, vy, vz, wx, wy, wz, wrench, fz_body=None):
     """One Physics.PYB substep over SoA columns (the op sequence of
     ``core/dynamics.substep_pyb`` without aero terms). ``wrench`` is
-    ``motor_wrench_soa`` of the step's RPMs."""
+    ``motor_wrench_soa`` of the step's RPMs. ``fz_body``, an optional (E,)
+    body-z force at the COM (the coupled swarm's wake sum), joins the thrust
+    before the accelerations, as ``substep_pyb``'s dense downwash term does:
+    torque-free, and seen by the resting-contact test."""
     m_, g_ = c["m_"], c["g_"]
     J, Jinv, z_min = c["J"], c["Jinv"], c["z_min"]
     fsum, tau_x, tau_y, tau_z = wrench
+    if fz_body is not None:
+        fsum = fsum + fz_body
 
     r00, r01, r02, r10, r11, r12, r20, r21, r22 = _rot_cols_from_quat(qx, qy, qz, qw)
     axw, ayw, azw = _div(r02 * fsum, m_), _div(r12 * fsum, m_), _div(r22 * fsum, m_) - g_

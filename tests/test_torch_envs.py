@@ -138,10 +138,15 @@ def test_adjacency_matrix_matches_jax():
 
 
 def test_rgb_and_contact_configs_name_their_slice():
+    """RGB names slice 4; collisions=True is ported, and its impulse mode
+    names slice 3 when the env steps."""
     with pytest.raises(NotImplementedError, match="slice 4"):
         tbase.AviaryConfig(obs_type=tspec.ObservationType.RGB)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tbase.AviaryConfig(collisions=True)
+    cfg = tbase.AviaryConfig(collisions=True, contact_mode="impulse")
+    av = tbase.Aviary(cfg, device="cpu")
+    state, _ = av.reset()
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        av.step(state, torch.zeros((1, 4)))
 
 
 def test_aviary_bundle_steps_on_the_cpu():

@@ -149,13 +149,16 @@ def test_step_physics_matches_jax(physics):
 
 
 def test_step_physics_leaves_contact_slices_unported():
+    """Clamp contact with collisions is ported (tests/test_torch_collisions.py);
+    the sequential-impulse mode, with or without collisions, names slice 3."""
     tp = drone_params(dtype=F64, device="cpu")
     kin = tdyn.init_kin_state(_t([[0.0, 0.0, 1.0]]), _t([[0.0, 0.0, 0.0, 1.0]]))
     rpm = torch.zeros((1, 4), dtype=F64)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tdyn.step_physics(kin, rpm, rpm, tp, 1 / 240, 5, Physics.PYB, collisions=True)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tdyn.step_physics(kin, rpm, rpm, tp, 1 / 240, 5, Physics.PYB, contact_mode="impulse")
+    tdyn.step_physics(kin, rpm, rpm, tp, 1 / 240, 5, Physics.PYB, collisions=True)
+    for collisions in (False, True):
+        with pytest.raises(NotImplementedError, match="slice 3"):
+            tdyn.step_physics(kin, rpm, rpm, tp, 1 / 240, 5, Physics.PYB,
+                              collisions=collisions, contact_mode="impulse")
 
 
 @pytest.mark.parametrize("model", ["CF2X", "CF2P"])
