@@ -9,8 +9,8 @@ or on any failed check. Imports nothing of JAX or of the JAX package.
 Phases, one or more lines each:
   1. the device, and nvidia-smi's name and power limit;
   2. build every kernel, one nvcc per source started together (K1,
-     csrc/velocity_rollout.cu; K2, K4, K5, csrc/pair_kernels.cu), and print
-     ptxas's registers and spills;
+     csrc/velocity_rollout.cu; K2, K4, K5, csrc/pair_kernels.cu; K3, K6,
+     csrc/masked_pair_kernels.cu), and print ptxas's registers and spills;
   3. hold K1 against its plain PyTorch version on the card at E = 4096
      (batch_reset state, formation actions): T = 8 and T = 240 (5 s) at atol
      1e-5 on every column, and at T = 240 finiteness and the ground clamp;
@@ -20,7 +20,8 @@ Phases, one or more lines each:
      and T = 240; then make_batched_step on the card against the CPU for 24
      steps (tests/test_soa.py's limits over the first 12);
   5. K1's time with CUDA events (E = 4096, T = 4800, after a warm-up, 5
-     repeats), the plain version's time for the same T, and K1's bound;
+     repeats), the plain version's time for T = 480 (a tenth of the depth:
+     it is launch-bound and would take a minute), and K1's bound;
   6. the pair kernels K2, K4, K5 against their plain versions on the card,
      on tests/test_soa.py's cloud scaled to N = 4096 and 16384 with
      overlapping pairs: square with the z-sorted culls off and on, K2 and K4
@@ -30,6 +31,13 @@ Phases, one or more lines each:
      after the contact deltas at atol 1e-6; contacts fired, the culls
      skipped tiles, launch counts; the whole z-sorted passes against the
      unsorted ones;
+  6b. the masked pair kernels K3, K6 against their plain versions on the
+     card: the cloud under a random permutation, sorted by z and by Morton
+     key at N = 4096 and 16384, the cone cull on and off, with a padding
+     column, and rectangular 4096 x 16384, at the limits of phase 6 on real
+     slots; the compacted grid equal to the dense masked one bit for bit;
+     the share of sub-slices the masks leave live; a forced small cap takes
+     the overflow branch and the counters say so;
   7. the coupled swarm's main path through the user entry points:
      make_swarm_physics(init_pos=...) ("auto" -> "soa") on
      scripts/collide_bench.py's lattice (0.5 m pitch, +-0.1 m jitter) at
@@ -42,10 +50,33 @@ Phases, one or more lines each:
      path on the CPU, and make_big_swarm_physics against the SoA step, at
      N = 4096, on unique-z towers and, with collisions, co-planar contact
      pairs beside such towers (so that K5's wake moves what is compared);
+  7b. the binned and the sorted backends through make_swarm_physics:
+     "auto" on the lattice at N = 16384, pitch 2.5 m and N = 65536, pitch 4 m
+     picks "binned"; collisions off and on, 48 control steps each, K3 / K6
+     launch counts as the code implies (one K3 at init, then 5 K3 or 5 K6 a
+     control step), no pass on the overflow branch, the layout cell-aligned,
+     real slots finite and at or above the ground clamp (with contact, by
+     phase 7's rule), export returning each drone once; backend="soa" with
+     sorted=True at N = 16384, pitch 2 m, both orders, 12 control steps, the
+     same checks; binned and sorted against "soa" over 3 control steps on
+     that fleet and, with contact, on co-planar contact pairs beside unique-z
+     towers (tests/test_soa.py:623-628's limits), the z order also with the
+     cone cull off; one control step of the
+     binned kernel path on the card against the binned plain path on the CPU
+     at N = 4096, on towers and on co-planar pairs beside towers;
   8. times with CUDA events: each pair kernel per pass (N = 4096 and 16384,
      culls off and on), its plain version and its bound; the swarm step per
      control step, split into the pair kernels and the rest, and the card's
      idle share (1 - busy time under torch.profiler / event time);
+  8b. K3 and K6 on both binned fleets, at the tiles, padding and list cap
+     the main path gives them: dense and compacted against their plain
+     versions on the real slots at phase 6's limits, on the lattice and on
+     the lattice with drones in touch, and the wake against the unmasked
+     plain wake of the real drones; then per pass, dense and compacted,
+     beside the bound for the pairs of real drones the masks leave, K2 / K5
+     z-sorted on the same fleet and the plain versions; the mask and
+     compaction ops per pass; the overflow check's host read; the rebin;
+     the binned and the sorted step per control step with phase 8's split;
   9. one JSON line of kernels, the nvidia-smi line, and the result line.
 """
 
@@ -72,7 +103,7 @@ from gym_pybullet_drones_tpu_torch.envs.base import (
     compute_obs,
 )
 from gym_pybullet_drones_tpu_torch.envs.spec import Physics
-from gym_pybullet_drones_tpu_torch.ops import _build, _pairs, collide_pairs
+from gym_pybullet_drones_tpu_torch.ops import _build, _pairs, collide_pairs, interact_pairs, spatial
 from gym_pybullet_drones_tpu_torch.ops.collide_pairs import (
     collide_cuda,
     collide_plain,
@@ -81,16 +112,24 @@ from gym_pybullet_drones_tpu_torch.ops.collide_pairs import (
 )
 from gym_pybullet_drones_tpu_torch.ops.downwash_pairs import (
     downwash_cuda,
+    downwash_masked_cuda,
+    downwash_masked_plain,
     downwash_plain,
     make_downwash,
+    make_downwash_masked,
     wake_terms,
 )
 from gym_pybullet_drones_tpu_torch.ops.interact_pairs import (
     interact_cuda,
+    interact_masked_cuda,
+    interact_masked_plain,
     interact_plain,
     make_interact,
+    make_interact_masked,
 )
+from gym_pybullet_drones_tpu_torch.ops.swarm_binned import binned_geometry, make_binned_swarm
 from gym_pybullet_drones_tpu_torch.ops.swarm_soa import (
+    make_sorted_swarm,
     make_swarm_step_soa,
     swarm_soa_from_kin,
     swarm_soa_to_kin,
@@ -119,7 +158,7 @@ from gym_pybullet_drones_tpu_torch.runtime.swarm import (
 )
 
 E = 4096
-T_SHORT, T_LONG, T_TIME = 8, 240, 4800
+T_SHORT, T_LONG, T_TIME, T_PLAIN = 8, 240, 4800, 480
 REPEATS = 5
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
 # The float32 peak counts a fused multiply-add as two operations; K1 is built
@@ -142,8 +181,21 @@ PAIRS = {  # name -> (rows in, outputs, kernel, plain version, TPU kernel)
     "K4": (6, 6, collide_cuda, collide_plain, "gym_pybullet_drones_tpu/ops/collide_pallas.py:145"),
     "K5": (6, 7, interact_cuda, None, "gym_pybullet_drones_tpu/ops/interact_pallas.py:160"),
 }
+MASKED = {  # name -> (rows in, outputs, kernel, plain version, maker, TPU kernel)
+    "K3": (3, 1, downwash_masked_cuda, downwash_masked_plain, make_downwash_masked,
+           "gym_pybullet_drones_tpu/ops/downwash_pallas.py:304"),
+    "K6": (6, 7, interact_masked_cuda, interact_masked_plain, make_interact_masked,
+           "gym_pybullet_drones_tpu/ops/interact_pallas.py:325"),
+}
 # tests/test_soa.py:187-196 (and tests/test_torch_swarm.py)
 SWARM_LIMITS = dict(pos=1e-5, vel=1e-4, quat=1e-6, ang_v=1e-4, rpy_rates=1e-4)
+# tests/test_soa.py:623-628: backends that reorder the pair sums, 3 control steps
+REORDER_LIMITS = dict(pos=1e-4, vel=1e-3, quat=1e-5)
+# The binned fleets of phase 7b and 8b: (drones, lattice pitch in m). The
+# selection rule reads a lattice of pitch p and side k as (k - 1) / k * p, so
+# 2.5 m is the pitch that clears its 2 m threshold at 16384 drones.
+BINNED_FLEETS = ((16384, 2.5), (65536, 4.0))
+SORTED_T = 12
 
 
 def fail(msg):
@@ -275,10 +327,11 @@ def wake_report(name, w, wp):
             f"|wake| median {float(mag.median()):.3g}, max {float(mag.max()):.3g})")
 
 
-def pair_error(name, got, want, tgt):
+def pair_error(name, got, want, tgt, contacts=True):
     """``(max |kernel - plain| over the outputs, the wake's report)``; fails
     beyond the wake's limit above or, after the contact deltas, beyond atol
-    1e-6 (tests/test_torch_pairs.py)."""
+    1e-6 (tests/test_torch_pairs.py). ``contacts`` False: a fleet with no two
+    drones in touch, on which no contact may fire."""
     o, note = 0, ""
     if name in ("K2", "K5"):
         note = wake_report(name, got[0], want[0])
@@ -288,8 +341,9 @@ def pair_error(name, got, want, tgt):
         gap = float(((base + got[o:]) - (base + want[o:])).abs().max())
         if not gap <= 1e-6:
             fail(f"{name}'s positions or velocities after the deltas differ by {gap:.3g} > 1e-6")
-        if not float(got[o:o + 3].abs().max()) > 0:
-            fail(f"{name}: no contact fired on a cloud with overlapping pairs")
+        if (float(got[o:o + 3].abs().max()) > 0) != contacts:
+            fail(f"{name}: " + ("no contact fired on a cloud with overlapping pairs" if contacts
+                                else "a contact fired on a fleet with no two drones in touch"))
     return float((got - want).abs().max()), note
 
 
@@ -303,12 +357,21 @@ def as_rows(res):
 
 
 def pair_launches():
-    return {name: PAIRS[name][2].launches for name in PAIRS}
+    """Launches of K2 to K6 since the last reset."""
+    return {name: d[name][2].launches for d in (PAIRS, MASKED) for name in d}
+
+
+def masked_overflows():
+    """Passes of K3 and K6 that took the overflow branch since the last reset."""
+    return {name: MASKED[name][4].overflows for name in MASKED}
 
 
 def reset_pair_launches():
-    for name in PAIRS:
-        PAIRS[name][2].launches = 0
+    for d in (PAIRS, MASKED):
+        for name in d:
+            d[name][2].launches = 0
+    for name in MASKED:
+        MASKED[name][4].overflows = 0
 
 
 def ops_per_pair(c):
@@ -373,21 +436,24 @@ def contact_fleet(n):
 @contextlib.contextmanager
 def last_launch(kernel):
     """Records the stacked target columns and the output of the last launch
-    of the pair kernel ``kernel`` (by wrapping ``_pairs.launch``; the
-    launch counters are the kernel wrappers' and stay as they are)."""
-    seen, launch = {}, _pairs.launch
+    of the pair kernel ``kernel`` (by wrapping ``_pairs.launch`` and
+    ``_pairs.launch_masked``; the launch counters are the kernel wrappers'
+    and stay as they are)."""
+    seen, launchers = {}, (_pairs.launch, _pairs.launch_masked)
 
-    def recording(name, tgt, *args, **kwargs):
-        out = launch(name, tgt, *args, **kwargs)
-        if name == kernel:
-            seen.update(tgt=tgt, out=out)
-        return out
+    def recording(launch):
+        def call(name, tgt, *args, **kwargs):
+            out = launch(name, tgt, *args, **kwargs)
+            if name == kernel:
+                seen.update(tgt=tgt, out=out)
+            return out
+        return call
 
-    _pairs.launch = recording
+    _pairs.launch, _pairs.launch_masked = (recording(f) for f in launchers)
     try:
         yield seen
     finally:
-        _pairs.launch = launch
+        _pairs.launch, _pairs.launch_masked = launchers
 
 
 def contact_partners(pos, c):
@@ -409,13 +475,12 @@ def fleet_kin(pos, vel, device):
     return kin.replace(vel=torch.as_tensor(vel, device=device))
 
 
-def kin_gaps(a, b):
-    return {k: float((getattr(a, k) - getattr(b, k)).abs().max()) for k in SWARM_LIMITS}
+def kin_gaps(a, b, limits=SWARM_LIMITS):
+    return {k: float((getattr(a, k) - getattr(b, k)).abs().max()) for k in limits}
 
 
-def check_kin_gaps(what, gaps):
-    bad = [f"{k}: {v:.3g} > {SWARM_LIMITS[k]}" for k, v in gaps.items()
-           if not v <= SWARM_LIMITS[k]]
+def check_kin_gaps(what, gaps, limits=SWARM_LIMITS):
+    bad = [f"{k}: {v:.3g} > {limits[k]}" for k, v in gaps.items() if not v <= limits[k]]
     if bad:
         fail(f"{what}: " + "; ".join(bad))
 
@@ -482,7 +547,7 @@ def phase6_pairs(dev, c, params):
             tgt = _pairs.sort_by_z(tgt)[0]
             src = tgt if square else _pairs.sort_by_z(src)[0]
         total = math.ceil(nt / _pairs.BLOCK) * math.ceil(src.shape[1] / _pairs.BLOCK)
-        split, per = _pairs.source_split(nt, src.shape[1])
+        split, per = _pairs.source_split(nt, src.shape[1], _pairs.sm_count(dev))
         for name in (PAIRS if square else ("K2", "K4")):
             tiles = torch.zeros(2, dtype=torch.int32, device=dev)
             got = pair_pass(name, tgt, src, c, sort, square, tiles=tiles)
@@ -547,8 +612,8 @@ def phase7_swarm(dev, params):
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             got = pair_launches()
-            want = (dict(K2=SWARM_T, K4=SWARM_T, K5=4 * SWARM_T) if coll
-                    else dict(K2=5 * SWARM_T, K4=0, K5=0))
+            want = (dict(K2=SWARM_T, K4=SWARM_T, K5=4 * SWARM_T, K3=0, K6=0) if coll
+                    else dict(K2=5 * SWARM_T, K4=0, K5=0, K3=0, K6=0))
             if got != want:
                 fail(f"swarm N={n} collisions={coll}: launches {got}, not {want}")
             main.update(got)
@@ -621,7 +686,8 @@ def phase7_swarm(dev, params):
         aos, _ = big(kin, rpm4, rpm4)
         torch.cuda.synchronize()
         got = pair_launches()
-        want = dict(K2=1, K4=1, K5=4) if coll else dict(K2=5, K4=0, K5=0)
+        want = (dict(K2=1, K4=1, K5=4, K3=0, K6=0) if coll
+                else dict(K2=5, K4=0, K5=0, K3=0, K6=0))
         if got != want:
             fail(f"make_big_swarm_physics collisions={coll}: launches {got}, not {want}")
         big_gaps = kin_gaps(aos, a)
@@ -716,6 +782,506 @@ def phase8_times(dev, c, params, ops):
     return res
 
 
+def masked_case(dev, c, params, n, n_src, order, cone, with_valid, contact, seed=5):
+    """Phase 6b's inputs: phase 6's cloud in ``order`` ("perm": a random
+    permutation; "z", "morton": sorted by that key), its live words, dense
+    and compacted (the cap at every source tile, so that it holds), and the
+    bool column of real slots. ``with_valid`` turns a fifth of the slots into
+    a binned layout's padding sentinels."""
+    tgt, src = pair_cloud(dev, n, n_src)
+    gen = torch.Generator().manual_seed(seed)
+
+    def ordered(cols):
+        if order == "perm":
+            o = torch.randperm(cols.shape[1], generator=gen).to(dev)
+        else:
+            o = torch.argsort(spatial.sort_key(cols[0], cols[1], cols[2], order), stable=True)
+        return cols[:, o].contiguous()
+
+    src = ordered(src)
+    tgt = src if n_src is None else ordered(tgt)
+    valid = src_valid = None
+    if with_valid:
+        sent = torch.tensor([0.0, 0.0, -1e9, 0.0, 0.0, 0.0], device=dev)[:, None]
+        src_valid = (torch.rand(src.shape[1], generator=gen) < 0.8).to(dev)
+        src = torch.where(src_valid, src, sent).contiguous()
+        if n_src is None:
+            tgt, valid = src, src_valid
+        else:
+            valid = (torch.rand(n, generator=gen) < 0.8).to(dev)
+            tgt = torch.where(valid, tgt, sent).contiguous()
+    bt = bs = _pairs.BLOCK
+    sub = spatial.subtile_count(bs)
+    words = spatial.subtile_packed_mask(
+        tgt[0], tgt[1], tgt[2], bt, bs, min_dist=c.min_dist if contact else None, params=params,
+        cone=cone, valid=valid, src_cols=None if n_src is None else tuple(src[:3]),
+        src_valid=None if n_src is None else src_valid, sub=sub)
+    nt, ns = tgt.shape[1] // bt, src.shape[1] // bs
+    lists, count_max = spatial.compact_live_tiles(words, nt, ns, ns)
+    real = torch.ones(n, dtype=torch.bool, device=dev) if valid is None else valid
+    return dict(tgt=tgt, src=src, words=words, lists=lists, count_max=int(count_max), real=real,
+                dense=_pairs.TileGrid(bt, bs, sub, ns, False),
+                compact=_pairs.TileGrid(bt, bs, sub, ns, True))
+
+
+def live_share(words, grid, section):
+    """The share of (target tile, source sub-slice) pairs whose bit is set in
+    ``section`` (0: wake, 1: contact) of dense words."""
+    bits = (words.to(torch.int64) >> (8 * section)) & 0xFF
+    count = sum(int(((bits >> k) & 1).sum()) for k in range(grid.sub))
+    return count / (words.numel() * grid.sub)
+
+
+def live_pairs(words, grid, section, valid=None):
+    """Pairs in the sub-slices that ``section`` of the square dense words
+    leaves live: slot pairs, which the kernel evaluates, or with ``valid``
+    the pairs of real drones among them, which the function needs."""
+    n_tiles = grid.row_len
+    real = (torch.ones(n_tiles * grid.bs, device=words.device) if valid is None else valid)
+    bits = torch.arange(grid.sub, device=words.device) + 8 * section
+    live = ((words.reshape(n_tiles, n_tiles, 1).to(torch.int64) >> bits) & 1).double()
+    tgt = real.reshape(n_tiles, grid.bt).sum(1, dtype=torch.float64)
+    src = real.reshape(n_tiles, grid.sub, grid.bs // grid.sub).sum(2, dtype=torch.float64)
+    return float((tgt[:, None, None] * live * src[None]).sum())
+
+
+def phase6b_masked(dev, c, params):
+    """K3 and K6 against their plain versions on the card."""
+    errs = {name: 0.0 for name in MASKED}
+    expect = Counter()
+    before = pair_launches()
+    cases = [(4096, None, "perm", True, False), (4096, None, "perm", False, True),
+             (16384, None, "perm", True, False), (16384, None, "z", True, True),
+             (16384, None, "morton", False, False), (4096, 16384, "perm", True, True)]
+    for n, n_src, order, cone, with_valid in cases:
+        for name in MASKED:
+            rows, n_out, kernel, plain, _, _ = MASKED[name]
+            k = masked_case(dev, c, params, n, n_src, order, cone, with_valid, name == "K6")
+            tgt, src, real = k["tgt"][:rows].contiguous(), k["src"][:rows].contiguous(), k["real"]
+            got = kernel(tgt, src, k["words"], k["dense"], c).reshape(n_out, -1)
+            packed = kernel(tgt, src, k["lists"], k["compact"], c).reshape(n_out, -1)
+            want = plain(tgt, src, k["words"], k["dense"], c).reshape(n_out, -1)
+            torch.cuda.synchronize()
+            expect[name] += 2
+            what = (f"{name} {'square' if n_src is None else 'rectangular'} {n}x{src.shape[1]} "
+                    f"order={order} cone={cone} valid={with_valid}")
+            if not torch.equal(packed, got):
+                fail(f"{what}: the compacted grid differs from the dense masked grid")
+            err, note = pair_error("K2" if name == "K3" else "K5", got[:, real], want[:, real],
+                                   tgt[:, real])
+            errs[name] = max(errs[name], err)
+            # The masks drop nothing: the unmasked plain wake agrees too.
+            wake_report(name, got[0][real], downwash_plain(tgt[:3].contiguous(),
+                                                           src[:3].contiguous(), c)[real])
+            shares = [live_share(k["words"], k["dense"], sec) for sec in range(1 + (name == "K6"))]
+            if order != "perm" and n_src is None and not all(x < 1.0 for x in shares):
+                fail(f"{what}: the masks left every sub-slice live on a sorted cloud")
+            print(f"[6b] {what}: tiles {k['dense'].bt}x{k['dense'].bs} in {k['dense'].sub} "
+                  f"sub-slices, compacted = dense masked bit for bit (longest live list "
+                  f"{k['count_max']} of {k['dense'].row_len}), max |kernel - plain| {err:.3g}, "
+                  f"live sub-slice share {[float(f'{x:.4g}') for x in shares]}; {note}",
+                  flush=True)
+    after = pair_launches()
+    rose = {name: after[name] - before[name] for name in MASKED}
+    if rose != dict(expect):
+        fail(f"the masked kernels' launch counts rose by {rose}, not {dict(expect)}")
+
+    # A forced small cap takes the overflow branch, and the counters say so.
+    cols = pair_cloud(dev, SWARM_N[0])[0]
+    x = [cols[i] for i in range(6)]
+    for name, args, sorted_name in (("K3", x[:3], "K2"), ("K6", x, "K5")):
+        make = MASKED[name][4]
+        ref = as_rows(make(params, device=dev).cols(*args))
+        for fallback in (True, False):
+            reset_pair_launches()
+            got = as_rows(make(params, neighbor_cap=1, dense_fallback=fallback,
+                               device=dev).cols(*args))
+            torch.cuda.synchronize()
+            counts, over = pair_launches(), masked_overflows()
+            want = {k: 0 for k in counts} | {name if fallback else sorted_name: 1}
+            if counts != want or over[name] != 1:
+                fail(f"{name} neighbor_cap=1 dense_fallback={fallback}: launches {counts} and "
+                     f"overflows {over}, not {want} and 1")
+            if fallback and not torch.equal(got, ref):
+                fail(f"{name}: the dense fallback differs from the dense masked grid")
+            err, note = pair_error(sorted_name, got, ref, cols)
+            print(f"[6b] {name} whole pass N={SWARM_N[0]} neighbor_cap=1 dense_fallback="
+                  f"{fallback}: overflow branch taken once ({'dense masked grid' if fallback else 'z-sorted ' + sorted_name}), "
+                  f"launches {({k: v for k, v in counts.items() if v})}, max |diff| against the "
+                  f"dense masked pass {err:.3g}; {note}", flush=True)
+    reset_pair_launches()
+    return errs
+
+
+def cell_aligned(s, n, cap):
+    """True if the binned state ``s`` holds its ``n`` drones cell by cell:
+    each cell block's real slots first, and not the dense layout that a
+    cell over ``cap`` falls back to."""
+    blocks = s["valid"].reshape(-1, cap).to(torch.int8)
+    firsts = bool((blocks[:, 1:] <= blocks[:, :-1]).all())
+    dense = bool(s["valid"][:n].all())
+    ids = s["ids"][s["valid"]]
+    once = bool(torch.equal(torch.sort(ids).values, torch.arange(n, device=ids.device)))
+    return firsts and not dense and once
+
+
+def ground_report(what, kin, k6, real, pc, z_min):
+    """Phase 7's ground rule for a run whose last pair pass was K6: the clamp
+    held before it on the real slots, the final z is its result, and no
+    drone sits deeper below the clamp than max_push times the partners it
+    had in that pass."""
+    pre, delta = k6["tgt"][:, real], k6["out"][:, real]
+    if not float(pre[2].min()) >= z_min:
+        fail(f"{what}: z {float(pre[2].min())} < the clamp {z_min} before the last pair pass")
+    after = pre[2] + delta[3]
+    if not torch.equal(torch.sort(after).values, torch.sort(kin.pos[:, 2]).values):
+        fail(f"{what}: the final z is not the last pair pass's result")
+    partners = contact_partners(pre[:3].contiguous(), pc)
+    room = pc.max_push * partners.to(torch.float32) + 1e-6
+    depth = torch.clamp(float(z_min) - after, min=0.0)
+    if not bool((depth <= room).all()):
+        i = int((depth - room).argmax())
+        fail(f"{what}: a drone is {float(depth[i])} m below the clamp with "
+             f"{int(partners[i])} partners in the last pair pass")
+    return (f"min z {float(kin.pos[:, 2].min()):.6f} (clamp {z_min}; held before the last pair "
+            f"pass; {int((depth > 0).sum())} drones below it, each within max_push x its "
+            f"partners)")
+
+
+def run_masked_backend(what, triple, kin, rpm, steps, coll, pc, z_min):
+    """Drive ``(init, step, export)`` of a backend on K3 / K6 for ``steps``
+    control steps with the counters reset before and read after, and check
+    the launches, the overflows, finiteness, the ground rule and export."""
+    init, step, export = triple
+    n = kin.pos.shape[0]
+    reset_pair_launches()
+    t0 = time.perf_counter()
+    with last_launch(interact_pairs.MASKED_NAME) as k6:
+        s = init(kin)
+        if not torch.equal(export(s, kin).pos, kin.pos):
+            fail(f"{what}: export(init(kin)) does not return the drones in their order")
+        for _ in range(steps):
+            s = step(s, rpm)
+        out = export(s, kin)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got, over = pair_launches(), masked_overflows()
+    want = dict(K2=0, K4=0, K5=0, K3=1 + (0 if coll else 5 * steps), K6=5 * steps if coll else 0)
+    if got != want:
+        fail(f"{what}: launches {got}, not {want}")
+    if any(over.values()):
+        fail(f"{what}: {over} passes took the overflow branch")
+    leaves = (out.pos, out.quat, out.vel, out.ang_v, out.rpy_rates)
+    if not all(bool(torch.isfinite(x).all()) for x in leaves):
+        fail(f"{what}: the state is not finite")
+    if out.pos.shape != (n, 3):
+        fail(f"{what}: export returned {tuple(out.pos.shape)} positions for {n} drones")
+    if coll:
+        real = s["valid"] if "valid" in s else torch.ones(n, dtype=torch.bool, device=kin.pos.device)
+        ground = ground_report(what, out, k6, real, pc, z_min)
+    else:
+        low = float(out.pos[:, 2].min())
+        if not low >= z_min:
+            fail(f"{what}: a drone is at z {low} < the clamp {z_min}")
+        ground = f"min z {low:.6f} (clamp {z_min})"
+    print(f"[7b] {what}: {steps} control steps in {wall:.3f} s wall, launches "
+          f"{({k: v for k, v in got.items() if v})}, overflow passes 0, finite, {ground}",
+          flush=True)
+    return got, s, out
+
+
+def phase7b_backends(dev, params):
+    """The binned and the sorted backends through make_swarm_physics."""
+    hover = float(params.hover_rpm)
+    pc = _pairs.pair_consts(params)
+    z_min = np.float32(float(params.collision_h) / 2.0 - float(params.collision_z_offset))
+    main = Counter()
+    identity = lambda n: np.tile([0.0, 0.0, 0.0, 1.0], (n, 1))
+    for n, pitch in BINNED_FLEETS:
+        pos = lattice(n, pitch)
+        backend = select_swarm_backend(pos)
+        if backend != "binned":
+            fail(f"select_swarm_backend picked {backend!r} at N={n}, pitch {pitch} m")
+        cell, nx, ny, cap = binned_geometry(pos)
+        print(f"[7b] N={n} pitch {pitch} m: backend {backend}, cell {cell} m, grid {nx} x {ny}, "
+              f"cap {cap}, {nx * ny * cap} slots", flush=True)
+        kin = init_kin_state(pos, identity(n), device=dev)
+        rpm = [torch.full((n,), hover, device=dev) for _ in range(4)]
+        for coll in (False, True):
+            triple = make_swarm_physics(params, 1 / 240, 5, collisions=coll, init_pos=pos)
+            what = f"binned N={n} pitch {pitch} m collisions={coll}"
+            got, s, _ = run_masked_backend(what, triple, kin, rpm, SWARM_T, coll, pc, z_min)
+            if s["valid"].shape != (nx * ny * cap,) or not cell_aligned(s, n, cap):
+                fail(f"{what}: the layout is not cell-aligned in {nx} x {ny} cells of {cap}")
+            main.update(got)
+
+    n = BINNED_FLEETS[0][0]
+    pos = lattice(n, 2.0)
+    kin = init_kin_state(pos, identity(n), device=dev)
+    rpm = [torch.full((n,), hover, device=dev) for _ in range(4)]
+    for order in ("z", "morton"):
+        for coll in (False, True):
+            triple = make_swarm_physics(params, 1 / 240, 5, collisions=coll, backend="soa",
+                                        sorted=True, order=order)
+            what = f"sorted N={n} order={order} collisions={coll}"
+            got, _, _ = run_masked_backend(what, triple, kin, rpm, SORTED_T, coll, pc, z_min)
+            main.update(got)
+
+    # Across backends on the card, on fleets that are robust to the order of
+    # the pair sums (tests/test_soa.py:568-587): without contact the 2 m
+    # lattice with +-0.4 m jitter; with contact, where that lattice has no
+    # two drones in touch, co-planar contact pairs beside unique-z towers.
+    rng = np.random.RandomState(11)
+    fmt = lambda d: json.dumps({k: float(f"{v:.3g}") for k, v in d.items()})
+    for coll in (False, True):
+        fpos, fvel = (contact_fleet(n) if coll
+                      else (pos, rng.uniform(-0.2, 0.2, (n, 3)).astype(np.float32)))
+        kin = fleet_kin(fpos, fvel, dev)
+        outs = {}
+        # The cone cull takes beta = c2 dz + c3 -> 0 as an ever narrower
+        # Gaussian, while the pair term (as the JAX package's) puts beta^2 = 1
+        # where float32 beta is exactly 0, at dz = 0.6875 m. A tile pair culled
+        # by the cone can hold such a pair; the towers' levels drift through
+        # that dz, so the z order is also run with the cone off
+        # (scripts/torch_cone_guard.py finds the pairs).
+        for name, kw in (("soa", dict(backend="soa")),
+                         ("binned", dict(backend="binned", init_pos=fpos)),
+                         ("sorted z", dict(backend="soa", sorted=True, order="z")),
+                         ("sorted z, cone off", dict(order="z", cone=False)),
+                         ("sorted morton", dict(backend="soa", sorted=True, order="morton"))):
+            make = make_swarm_physics if "backend" in kw else make_sorted_swarm
+            init, step, export = make(params, 1 / 240, 5, collisions=coll, **kw)
+            s = init(kin)
+            for _ in range(3):
+                s = step(s, rpm)
+            outs[name] = export(s, kin)
+        torch.cuda.synchronize()
+        line = []
+        for name in ("binned", "sorted z", "sorted z, cone off", "sorted morton"):
+            gaps = kin_gaps(outs[name], outs["soa"], REORDER_LIMITS)
+            check_kin_gaps(f"{name} against soa, N={n}, collisions={coll}", gaps, REORDER_LIMITS)
+            line.append(f"{name} {fmt(gaps)}")
+        moved = ""
+        if coll:  # contact and wake both moved what is compared
+            push = float((outs["binned"].pos[:n // 2, :2] - kin.pos[:n // 2, :2]).abs().max())
+            dvz = (outs["binned"].vel[n // 2:, 2] - kin.vel[n // 2:, 2]).reshape(-1, 8)
+            sink = float(dvz[:, 0].mean() - dvz[:, 7].mean())
+            if not (push > 1e-4 and sink < -0.1):
+                fail(f"across backends with contact: the pairs moved {push} m and the towers' "
+                     f"lowest drones sank {-sink} m/s faster than their highest")
+            moved = (f"; contact moved the pairs by up to {push:.4f} m and the towers' lowest "
+                     f"drones sank {-sink:.4f} m/s faster than their highest")
+        print(f"[7b] N={n} {'co-planar pairs beside towers' if coll else 'pitch 2 m'}, 3 control "
+              f"steps, collisions={coll}, against backend 'soa' (limits "
+              f"{json.dumps(REORDER_LIMITS)}): " + "; ".join(line) + moved, flush=True)
+
+    # The binned kernel path on the card against the binned plain path on the CPU.
+    n = SWARM_N[0]
+    params_cpu = params.to("cpu")
+    rpm = [torch.full((n,), hover, device=dev) for _ in range(4)]
+    for coll, (fpos, fvel) in ((False, towers(n)), (True, contact_fleet(n))):
+        geo = dict(zip(("cell_size", "nx", "ny", "cap"), binned_geometry(fpos)))
+        runs = {}
+        for key, p, d in (("card", params, dev), ("cpu", params_cpu, "cpu")):
+            init, step, export = make_binned_swarm(p, 1 / 240, 5, collisions=coll, device=d, **geo)
+            k0 = fleet_kin(fpos, fvel, d)
+            runs[key] = export(step(init(k0), [r.to(d) for r in rpm]), k0)
+        gaps = kin_gaps(runs["card"], runs["cpu"].to(dev))
+        check_kin_gaps(f"binned step, kernels on the card against plain on the CPU, "
+                       f"collisions={coll}", gaps)
+        towers_at = slice(n // 2, n) if coll else slice(0, n)
+        dvz = (runs["card"].vel[towers_at, 2]
+               - torch.as_tensor(fvel[towers_at, 2], device=dev)).reshape(-1, 8)
+        sink = float(dvz[:, 0].mean() - dvz[:, 7].mean())
+        if not sink < -0.1:
+            fail(f"binned collisions={coll}: the wake did not move the towers ({sink} m/s)")
+        if coll and not float((runs["card"].pos[:n // 2, :2].cpu()
+                               - torch.as_tensor(fpos[:n // 2, :2])).abs().max()) > 1e-4:
+            fail("binned: no contact fired in the co-planar pairs")
+        print(f"[7b] binned N={n} {'co-planar pairs beside towers' if coll else 'towers'}, "
+              f"collisions={coll}, one control step, geometry {json.dumps(geo)}: kernels on the "
+              f"card against plain on the CPU {fmt(gaps)} (the towers' lowest drones sink "
+              f"{-sink:.4f} m/s faster than their highest)", flush=True)
+    return main
+
+
+def touching_fleet(pos, seed=3):
+    """``pos`` with every 64th drone moved into contact with the one before
+    it (phase 6's overlapping pairs), and velocities of up to 0.5 m/s."""
+    pos = pos.copy()
+    pos[1::64] = pos[0::64][:len(pos[1::64])] + np.array([0.08, 0.0, 0.05], np.float32)
+    vel = np.random.RandomState(seed).uniform(-0.5, 0.5, pos.shape).astype(np.float32)
+    return pos, vel
+
+
+def layout_pass(name, s, c, params, n_cells, cap, nbr):
+    """The masked pass ``name`` as the binned step gives it to its kernel on
+    the state ``s``: a cell block a tile, the live words dense and compacted
+    at the ring cap ``nbr``."""
+    rows = MASKED[name][0]
+    t = torch.stack([s[k] for k in ("px", "py", "pz", "vx", "vy", "vz")[:rows]]).contiguous()
+    sub = spatial.subtile_count(cap)
+    mask_fn = lambda: spatial.subtile_packed_mask(
+        t[0], t[1], t[2], cap, cap, min_dist=c.min_dist if name == "K6" else None,
+        params=params, valid=s["valid"], sub=sub)
+    words = mask_fn()
+    compact_fn = lambda: spatial.compact_live_tiles(words, n_cells, n_cells, nbr)
+    lists, count_max = compact_fn()
+    if int(count_max) > nbr:
+        fail(f"{name}: a row holds {int(count_max)} live tiles, over the cap {nbr}")
+    return dict(t=t, words=words, lists=lists, count_max=int(count_max), mask_fn=mask_fn,
+                compact_fn=compact_fn, dense=_pairs.TileGrid(cap, cap, sub, n_cells, False),
+                compact=_pairs.TileGrid(cap, cap, sub, nbr, True))
+
+
+def hold_layout_pass(what, name, k, valid, c, contacts):
+    """The kernel on the binned layout ``k``, dense and compacted, against
+    its plain version on the real slots, at phase 6's limits; the wake also
+    against the unmasked plain wake of the real drones alone (the masks and
+    the padding drop and add nothing). Returns the largest |kernel - plain|,
+    a note and the plain version's time."""
+    _, n_out, kernel, plain, _, _ = MASKED[name]
+    t = k["t"]
+    got = kernel(t, t, k["words"], k["dense"], c).reshape(n_out, -1)
+    packed = kernel(t, t, k["lists"], k["compact"], c).reshape(n_out, -1)
+    if not torch.equal(packed, got):
+        fail(f"{what}: the compacted grid differs from the dense masked grid")
+    want = plain(t, t, k["words"], k["dense"], c).reshape(n_out, -1)
+    torch.cuda.synchronize()
+    ms_plain = event_ms(lambda: plain(t, t, k["words"], k["dense"], c), 1)[0]
+    err, note = pair_error("K2" if name == "K3" else "K5", packed[:, valid], want[:, valid],
+                           t[:, valid], contacts)
+    real = t[:3, valid].contiguous()
+    wake_report(name, packed[0][valid], downwash_plain(real, real, c))
+    return err, note, ms_plain
+
+
+def phase8b_times(dev, c, params, ops):
+    """K3 and K6 on the binned fleets, at the shapes the main path gives
+    them: held against their plain versions, then timed per pass; and the
+    binned and sorted steps per control step. Returns the kernels' numbers
+    at the larger fleet (compacted grid, the main path's form)."""
+    hover = float(params.hover_rpm)
+    res = {}
+    identity = lambda n: np.tile([0.0, 0.0, 0.0, 1.0], (n, 1))
+    for n, pitch in BINNED_FLEETS:
+        pos = lattice(n, pitch)
+        cell, nx, ny, cap = binned_geometry(pos)
+        geo = dict(cell_size=cell, nx=nx, ny=ny, cap=cap)
+        kin = init_kin_state(pos, identity(n), device=dev)
+        rpm = [torch.full((n,), hover, device=dev) for _ in range(4)]
+        init = make_binned_swarm(params, 1 / 240, 5, **geo)[0]
+        s = init(kin)
+        # The same fleet with drones in touch, in the same cells and tiles:
+        # the main path's lattice fires no contact.
+        s_touch = init(fleet_kin(*touching_fleet(pos), dev))
+        if not (cell_aligned(s, n, cap) and cell_aligned(s_touch, n, cap)):
+            fail(f"binned N={n}: a layout of phase 8b is not cell-aligned")
+        valid = s["valid"]
+        slots = valid.shape[0]
+        ring = 2 * int(math.ceil(10.0 / cell)) + 1
+        nbr = min(nx * ny, 2 * ring * ring)
+        sub = spatial.subtile_count(cap)
+        real = torch.stack([s[k] for k in ("px", "py", "pz", "vx", "vy", "vz")])[:, valid]
+        zsorted = _pairs.sort_by_z(real.contiguous())[0]
+        for name, sorted_name in (("K3", "K2"), ("K6", "K5")):
+            rows, n_out, kernel = MASKED[name][:3]
+            what = f"{name} binned N={n} pitch {pitch} m"
+            k = layout_pass(name, s, c, params, nx * ny, cap, nbr)
+            t, words, lists, dense, compact = (k[x] for x in ("t", "words", "lists", "dense",
+                                                              "compact"))
+            err, note, ms_plain = hold_layout_pass(what, name, k, valid, c, False)
+            k_touch = layout_pass(name, s_touch, c, params, nx * ny, cap, nbr)
+            err_touch, note_touch, _ = hold_layout_pass(
+                what + " with drones in touch", name, k_touch, s_touch["valid"], c, True)
+            ms_dense = per_pass_ms(lambda: kernel(t, t, words, dense, c), 10)
+            ms_compact = per_pass_ms(lambda: kernel(t, t, lists, compact, c), 10)
+            ms_mask = per_pass_ms(k["mask_fn"], 10)
+            ms_lists = per_pass_ms(k["compact_fn"], 10)
+            ms_read = per_pass_ms(lambda: int(k["compact_fn"]()[1]), 10) - ms_lists
+            ms_sorted = per_pass_ms(
+                lambda: pair_pass(sorted_name, zsorted, zsorted, c, True, True), 10)
+            sections = range(1 + (name == "K6"))
+            # The bound counts the pairs of real drones in the live sub-slices;
+            # the kernel also evaluates their padding slots.
+            pairs = [live_pairs(words, dense, sec, valid) for sec in sections]
+            slot_pairs = [live_pairs(words, dense, sec) for sec in sections]
+            flops = pairs[0] * ops["K2"] + (pairs[1] * ops["K4"] if name == "K6" else 0.0)
+            nbytes = (2 * rows + n_out) * slots * 4 + lists.numel() * 4
+            bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+            bound_by = ("operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES_PER_S
+                        else "bytes")
+            res[(name, n)] = dict(ms=ms_compact, plain_ms=ms_plain, bound_ms=bound_ms,
+                                  bound_by=bound_by, max_abs_err=max(err, err_touch))
+            shares = [live_share(words, dense, sec) for sec in sections]
+            short = lambda xs: [float(f"{x:.4g}") for x in xs]
+            print(f"[8b] {what} ({slots} slots, tiles {cap}x{cap} in {sub} sub-slices, "
+                  f"{_pairs.masked_threads(slots, cap, _pairs.sm_count(dev))} threads a block), "
+                  f"kernel against plain on the real slots, dense and compacted (bit-equal): max "
+                  f"|kernel - plain| {err:.3g}, no contact fired; {note}; with drones in touch "
+                  f"{err_touch:.3g}; {note_touch}", flush=True)
+            print(f"[8b] {what}: compacted (cap {nbr}, longest list {k['count_max']}) "
+                  f"{ms_compact:.5f} ms per pass, dense masked {ms_dense:.5f} ms; bound "
+                  f"{bound_ms:.5f} ms by {bound_by} (live sub-slice share {short(shares)}; pairs "
+                  f"of real drones in them {short(pairs)}, slot pairs the kernel evaluates "
+                  f"{short(slot_pairs)}, of {slots * slots:.4g}; {flops:.4g} ops / "
+                  f"{PEAK_FP32_FLOPS:.3g}; {nbytes} bytes / {PEAK_BYTES_PER_S:.3g} = "
+                  f"{nbytes / PEAK_BYTES_PER_S * 1e3:.3g} ms); plain {ms_plain:.3f} ms (one run); "
+                  f"{sorted_name} z-sorted on the {n} real drones {ms_sorted:.5f} ms; mask ops "
+                  f"{ms_mask:.5f} ms, compaction {ms_lists:.5f} ms, the overflow check's host "
+                  f"read {ms_read:.5f} ms per pass (event time with the read less without); "
+                  "library_ms null (no PyTorch call computes this function)", flush=True)
+
+        runs = [("binned", coll, dict(init_pos=pos)) for coll in (False, True)]
+        if n == BINNED_FLEETS[0][0]:
+            runs += [(f"sorted {order}", coll, dict(backend="soa", sorted=True, order=order))
+                     for order in ("z", "morton") for coll in (False, True)]
+            runs += [("soa (z-sorted passes)", coll, dict(backend="soa")) for coll in (False, True)]
+        for label, coll, kw in runs:
+            times, profs = {}, {}
+            resorts = "sorted" in kw or "init_pos" in kw  # the dense step never re-sorts its state
+            for every in (4, 1, 10 ** 9) if resorts else (4,):
+                init, step, _ = make_swarm_physics(
+                    params, 1 / 240, 5, collisions=coll,
+                    **(dict(resort_every=every) if resorts else {}), **kw)
+                state = [step(init(kin), rpm)]  # past the re-sort of step 0
+
+                def advance():
+                    state[0] = step(state[0], rpm)
+
+                times[every] = per_pass_ms(advance, 8, 3)
+                profs[every] = profile_steps(advance, 4)
+            ms, prof = times[4], profs[4]
+            note = ""
+            if resorts:
+                # The event times are host times and spread more than the
+                # re-sort costs; the card's busy time and the kernel count of
+                # a step with a re-sort, less those of one without, repeat.
+                each, never = profs[1], profs[10 ** 9]
+                on_card = ("not measured" if each is None or never is None else
+                           f"{each['kernels_per_step'] - never['kernels_per_step']:.0f} kernels and "
+                           f"{each['busy_ms'] - never['busy_ms']:.4f} ms of card busy time")
+                note = (f" at resort_every=4; {times[10 ** 9]:.4f} ms without a re-sort, "
+                        f"{times[1]:.4f} ms re-sorting every step; the re-sort "
+                        f"({'rebin' if 'init_pos' in kw else 'argsort and gather'}) costs "
+                        f"{on_card} (torch.profiler, steps with less steps without)")
+            print(f"[8b] {label} step N={n} pitch {pitch} m collisions={coll}: {ms:.4f} ms per "
+                  f"control step ({n / (ms / 1e3):.6g} drone-steps/s){note}", flush=True)
+            if prof is None:
+                print("[8b]   torch.profiler saw no device kernel: not measured", flush=True)
+            else:
+                print(f"[8b]   under torch.profiler, per control step: card busy "
+                      f"{prof['busy_ms']:.4f} ms, idle share {1 - prof['busy_ms'] / ms:.4f} "
+                      f"(1 - busy / {ms:.4f} ms event time), pair kernels "
+                      f"{prof['pair_ms']:.4f} ms, other kernels {prof['other_ms']:.4f} ms in "
+                      f"{prof['kernels_per_step']:.0f} kernels; wall {prof['wall_ms']:.4f} ms "
+                      "with the profiler's overhead", flush=True)
+    # The times of the larger fleet; the error over both.
+    return {name: res[(name, BINNED_FLEETS[-1][0])]
+            | {"max_abs_err": max(res[(name, n)]["max_abs_err"] for n, _ in BINNED_FLEETS)}
+            for name in MASKED}
+
+
 def main():
     # ---------------- 1. device ----------------
     if not torch.cuda.is_available():
@@ -729,11 +1295,11 @@ def main():
 
     # ---------------- 2. build ----------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        list(pool.map(_build.build, (KERNEL, _pairs.KERNEL)))
-    print(f"[2] built {KERNEL} and {_pairs.KERNEL} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    for lib in (KERNEL, _pairs.KERNEL):
+    sources = (KERNEL, _pairs.KERNEL, _pairs.MASKED_KERNEL)
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
+        list(pool.map(_build.build, sources))
+    print(f"[2] built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    for lib in sources:
         for line in _build.ptxas_report(lib).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[2]   {lib}: {line.strip()}", flush=True)
@@ -845,7 +1411,7 @@ def main():
     k_ms = statistics.median(k_times)
     velocity_rollout_plain(*args, 2, soa0, action)  # warm-up
     torch.cuda.synchronize()
-    p_ms = event_ms(lambda: velocity_rollout_plain(*args, T_TIME, soa0, action), 1)[0]
+    p_ms = event_ms(lambda: velocity_rollout_plain(*args, T_PLAIN, soa0, action), 1)[0]
     per_env, parts = ops_per_env(consts, cfg, sl, T_TIME)
     flops = per_env * E
     nbytes = (len(SOA_KEYS) + 4 + len(SOA_KEYS)) * 4 * E
@@ -853,8 +1419,8 @@ def main():
     bound_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes"
     print(f"[5] K1 E={E} T={T_TIME}: ms per repeat {[round(t, 4) for t in k_times]}, "
           f"median {k_ms:.4f} ms, {E * T_TIME / (k_ms / 1e3):.6g} env-steps/s", flush=True)
-    print(f"[5] plain version, same E and T, one run: {p_ms:.1f} ms "
-          f"({E * T_TIME / (p_ms / 1e3):.6g} env-steps/s)", flush=True)
+    print(f"[5] plain version, same E, T={T_PLAIN} (a tenth of the kernel's depth), one run: "
+          f"{p_ms:.1f} ms ({E * T_PLAIN / (p_ms / 1e3):.6g} env-steps/s)", flush=True)
     print(f"[5] bound: {per_env} ops per env for T={T_TIME} (ops per piece: "
           f"{json.dumps(parts)}; FMA counts 2 in the peak), {flops:.4g} ops / {PEAK_FP32_FLOPS:.3g} = {flops / PEAK_FP32_FLOPS * 1e3:.4g} ms; "
           f"{nbytes} bytes / {PEAK_BYTES_PER_S:.3g} = {nbytes / PEAK_BYTES_PER_S * 1e3:.4g} ms; "
@@ -865,15 +1431,18 @@ def main():
     swarm_params = params_cpu  # CF2X float32; the constants are read on the host
     pc = _pairs.pair_consts(swarm_params)
     pair_errs = phase6_pairs(dev, pc, swarm_params)
+    pair_errs.update(phase6b_masked(dev, pc, swarm_params))
 
-    # ---------------- 7. the coupled swarm's main path ----------------
+    # ---------------- 7. the coupled swarm's main paths ----------------
     pair_main = phase7_swarm(dev, params)
+    pair_main.update(phase7b_backends(dev, params))
 
     # ---------------- 8. times ----------------
     ops = ops_per_pair(pc)
     print(f"[8] operations per pair, counted on the plain pair terms: {json.dumps(ops)}",
           flush=True)
     pair_times = phase8_times(dev, pc, params, ops)
+    masked_times = phase8b_times(dev, pc, params, ops)
 
     # ---------------- 9. result ----------------
     kernels = [{
@@ -881,8 +1450,8 @@ def main():
         "source": "gym_pybullet_drones_tpu_torch/csrc/velocity_rollout.cu",
         "replaces": "gym_pybullet_drones_tpu/ops/velocity_pallas.py:74",
         "launches": launches[KERNEL], "max_abs_err": max_abs_err,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
+        "ms": k_ms, "plain_ms": p_ms, "plain_steps": T_PLAIN, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
     }]
     for pid in PAIRS:
         if pair_main[pid] == 0:
@@ -894,6 +1463,18 @@ def main():
             "max_abs_err": pair_errs[pid], **pair_times[(pid, SWARM_N[0], False)],
             "library_ms": None,
         })
+    for pid in MASKED:
+        if pair_main[pid] == 0:
+            fail(f"the binned and sorted backends never launched {pid}")
+        kernels.append({
+            "name": f"{pid} {MASKED[pid][2].__name__.removesuffix('_cuda')}",
+            "route": "cuda",
+            "source": "gym_pybullet_drones_tpu_torch/csrc/masked_pair_kernels.cu",
+            "replaces": MASKED[pid][5], "launches": pair_main[pid],
+            **masked_times[pid], "library_ms": None,
+            "max_abs_err": max(pair_errs[pid], masked_times[pid]["max_abs_err"]),
+        })
+    kernels.sort(key=lambda k: k["name"] if k["name"][0] == "K" else "K1")
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
             fail(f"non-finite measurement for {k['name']}")

@@ -10,7 +10,8 @@
 // Launchers: downwash_pairs (K2), collide_pairs (K4), interact_pairs (K5).
 // K2 and K4 take a square form (sources = targets) and a rectangular one;
 // K5 is square only. The pair arithmetic lives in two device functions,
-// wake_term and contact_term, so K5 is K2 plus K4 by construction.
+// wake_term and contact_term (pair_terms.cuh, shared with the masked passes
+// K3 and K6), so K5 is K2 plus K4 by construction.
 //
 // Bound. A pass reads 3 (wake) or 6 (contact) float columns of N targets and
 // N sources and writes 1, 6 or 7 columns: about 24 N bytes in, against
@@ -58,58 +59,15 @@
 // stream; each launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
-#include <math.h>
 #include <string.h>
+
+#include "pair_terms.cuh"
 
 namespace {
 
+using namespace pair_terms;
+
 constexpr int kBlock = 256;  // targets per block, and sources per shared tile
-
-// Host packs these floats in this order (ops/_pairs.py, PairConsts).
-struct PairConsts {
-  float K;          // c1 * r_prop^2 / 16: alpha = K / dz^2
-  float c2, c3;     // beta = c2 * dz + c3
-  float min_dist;   // 2 * collision_r
-  float min_dist2;  // min_dist^2, formed in double on the host
-  float eps2;       // 1e-9^2, formed in double on the host
-  float max_push;   // pushout cap per pass
-};
-constexpr int kNumConsts = sizeof(PairConsts) / sizeof(float);
-static_assert(kNumConsts == 7, "PairConsts layout changed: update the host packing");
-
-// The wake magnitude of a source at (dx, dy, dz) from the target (source
-// minus target); the pass subtracts it.
-__device__ __forceinline__ float wake_term(float dx, float dy, float dz, const PairConsts& c) {
-  const float dxy2 = dx * dx + dy * dy;
-  const float safe_dz = dz > 0.0f ? dz : 1.0f;
-  const float alpha = c.K / (safe_dz * safe_dz);
-  const float beta = c.c2 * safe_dz + c.c3;
-  const float safe_beta2 = fabsf(beta) > 1e-12f ? beta * beta : 1.0f;
-  const float mag = alpha * expf(-0.5f * dxy2 / safe_beta2);
-  return (dz > 0.0f && dxy2 < 100.0f) ? mag : 0.0f;
-}
-
-// Contact of a partner at (dx, dy, dz) = target minus partner, with relative
-// velocity (rvx, rvy, rvz) = target minus partner: adds the pushout to
-// acc[0..2] and the velocity correction to acc[3..5].
-__device__ __forceinline__ void contact_term(float dx, float dy, float dz, float rvx, float rvy,
-                                             float rvz, const PairConsts& c, float* acc) {
-  const float d2 = dx * dx + dy * dy + dz * dz;
-  const bool contact = d2 < c.min_dist2 && d2 > c.eps2;
-  const float inv = rsqrtf(fmaxf(d2, c.eps2));
-  const float dist = d2 * inv;
-  const float overlap = contact ? c.min_dist - dist : 0.0f;
-  const float nx = dx * inv, ny = dy * inv, nz = dz * inv;
-  const float push = fminf(0.5f * overlap, c.max_push);
-  acc[0] += push * nx;
-  acc[1] += push * ny;
-  acc[2] += push * nz;
-  const float vn = rvx * nx + rvy * ny + rvz * nz;
-  const float appr = (contact && vn < 0.0f) ? vn : 0.0f;
-  acc[3] += -0.5f * appr * nx;
-  acc[4] += -0.5f * appr * ny;
-  acc[5] += -0.5f * appr * nz;
-}
 
 // One (target block, source chunk) of a pass. kWake and kContact pick the
 // sections (K2: wake; K4: contact; K5: both), kCull the z-sorted culls and

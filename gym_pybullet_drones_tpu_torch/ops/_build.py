@@ -3,11 +3,14 @@
 Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
 header, so one ``nvcc`` call builds it in seconds. The shared library goes
 into ``_build/`` beside the package (listed in ``.gitignore``), named by a
-hash of the source and the flags, at first use.
+hash of the source, of every file under ``csrc/`` that it includes, and of
+the flags, at first use: a change to a shared header rebuilds every kernel
+that uses it.
 """
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -32,10 +35,32 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: str, seen=None):
+    """``path`` and, recursively, every file under ``csrc/`` that it includes
+    with ``#include "..."``, each once, in the order met."""
+    seen = [] if seen is None else seen
+    if path in seen:
+        return seen
+    seen.append(path)
+    with open(path, "rb") as fh:
+        text = fh.read()
+    for inc in _INCLUDE.findall(text):
+        child = os.path.join(CSRC, inc.decode())
+        if os.path.exists(child):
+            _sources(child, seen)
+    return seen
+
+
 def _paths(name: str):
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    sha = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(src):
+        with open(path, "rb") as fh:
+            sha.update(fh.read())
+    digest = sha.hexdigest()[:12]
     stem = os.path.join(BUILD_DIR, f"{name}-{digest}")
     return src, stem + ".so", stem + ".log"
 

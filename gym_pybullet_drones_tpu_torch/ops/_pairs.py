@@ -1,10 +1,12 @@
-"""What the pair passes K2, K4 and K5 share: constants, the z-sort, the CUDA
-launch and the chunked plain evaluation.
+"""What the pair passes K2 to K6 share: constants, the z-sort, the CUDA
+launches and the chunked plain evaluation.
 
 The three wrapper modules (``ops/downwash_pairs.py``, ``ops/collide_pairs.py``,
 ``ops/interact_pairs.py``) each hold one pass's pair arithmetic in plain
-PyTorch and its kernel's wrapper; the kernels themselves are
-``csrc/pair_kernels.cu``, one source built once for all three.
+PyTorch and its kernels' wrappers; the kernels themselves are
+``csrc/pair_kernels.cu`` (K2, K4, K5) and ``csrc/masked_pair_kernels.cu`` (the
+mask-gated K3 and K6), which share their pair terms through
+``csrc/pair_terms.cuh``.
 
 Layout at the kernel boundary: the target columns stacked into one contiguous
 (rows, Nt) float32 tensor (x, y, z and, for contact, vx, vy, vz), the source
@@ -21,10 +23,12 @@ import torch
 from gym_pybullet_drones_tpu_torch.ops import _build
 
 KERNEL = "pair_kernels"
+MASKED_KERNEL = "masked_pair_kernels"
 BLOCK = 256  # targets per block and sources per tile (csrc/pair_kernels.cu kBlock)
-# Blocks wanted in flight: a few waves over the H100's 132 SMs. The source
+# Blocks wanted in flight for each SM of the card: a few waves. The source
 # split S is chosen so that target blocks x S reaches it where the tiles allow.
-_WANTED_BLOCKS = 4 * 132
+_BLOCKS_PER_SM = 4
+_H100_SMS = 132  # what a caller without a card at hand reckons with
 # Fleet size above which the passes sort by z and cull tiles (the JAX
 # package's measured crossover, ops/downwash_pallas.py Z_SORT_MIN_N).
 Z_SORT_MIN_N = 8192
@@ -63,12 +67,19 @@ def use_z_sort(z_sort, nt: int, ns: int) -> bool:
     return max(nt, ns) >= Z_SORT_MIN_N if z_sort is None else bool(z_sort)
 
 
-def source_split(nt: int, ns: int):
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The SMs of the CUDA card ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def source_split(nt: int, ns: int, sms: int = _H100_SMS):
     """``(S, tiles_per_chunk)``: the source tiles split into S chunks of whole
-    tiles, none empty, so that the target blocks times S fill the card."""
+    tiles, none empty, so that the target blocks times S fill a card of
+    ``sms`` SMs."""
     n_tiles = max(1, math.ceil(ns / BLOCK))
     blocks = max(1, math.ceil(nt / BLOCK))
-    want = max(1, min(n_tiles, math.ceil(_WANTED_BLOCKS / blocks)))
+    want = max(1, min(n_tiles, math.ceil(_BLOCKS_PER_SM * sms / blocks)))
     per = n_tiles // want
     return math.ceil(n_tiles / per), per
 
@@ -100,26 +111,150 @@ def unsort(res: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def plain_rows(terms, tgt: torch.Tensor, src: torch.Tensor, n_out: int) -> torch.Tensor:
+def plain_rows(terms, tgt: torch.Tensor, src: torch.Tensor, n_out: int,
+               gates=None) -> torch.Tensor:
     """The plain evaluation of a pass: ``terms(t, s)`` maps target rows
     (rows, r, 1) and sources (rows, 1, Ns) to ``n_out`` (r, Ns) pair-term
     tensors, summed over the sources here, a chunk of target rows at a
-    time. Returns (n_out, Nt)."""
+    time. ``gates(r0, r1)``, for the masked passes, gives one (r, Ns) bool
+    per output: a pair term counts only where its gate holds. Returns
+    (n_out, Nt)."""
     nt, ns = tgt.shape[1], src.shape[1]
     out = torch.empty((n_out, nt), dtype=torch.float32, device=tgt.device)
     step = max(1, _PLAIN_PAIRS // max(ns, 1))
-    s = src[:, None, :]
     for r0 in range(0, nt, step):
-        parts = terms(tgt[:, r0:r0 + step, None], s)
+        t, s = tgt[:, r0:r0 + step, None], src[:, None, :]
+        if gates is None:
+            parts = terms(t, s)
+        else:
+            # Only the sources some gate of this chunk lets through are evaluated.
+            g = gates(r0, min(r0 + step, nt))
+            keep = torch.stack(list({id(x): x for x in g}.values())).any(0).any(0).nonzero()[:, 0]
+            parts = [torch.where(x[:, keep], p, 0.0) for x, p in zip(g, terms(t, s[:, :, keep]))]
         for o, p in enumerate(parts):
             out[o, r0:r0 + step] = torch.sum(p, dim=1)
     return out
+
+
+class TileGrid(NamedTuple):
+    """The tiling a masked pass runs on: ``bt`` targets and ``bs`` sources a
+    tile, ``sub`` sub-slices a source tile, and the words' form: dense
+    (``row_len`` = source tiles, one word per tile pair) or ``compact``
+    (``row_len`` = the cap, each word ``source tile << 16 | bits``)."""
+
+    bt: int
+    bs: int
+    sub: int
+    row_len: int
+    compact: bool
+
+
+def slice_gates(words: torch.Tensor, grid: TileGrid, nt: int, ns: int):
+    """The words as the kernels read them: ``(wake, contact)``, each a
+    (target tiles, source sub-slices) bool, bit k of a word gating the wake
+    of its tile's k-th sub-slice and bit 8+k its contact. A compacted row is
+    read up to its first zero word."""
+    n_tt, n_st = nt // grid.bt, ns // grid.bs
+    w = words.reshape(n_tt, grid.row_len).to(torch.int64)
+    if grid.compact:
+        listed = torch.cumprod((w != 0).to(torch.int64), dim=1) != 0
+        dense = torch.zeros((n_tt, n_st + 1), dtype=torch.int64, device=w.device)
+        dense.scatter_(1, torch.where(listed, w >> 16, n_st), w & 0xFFFF)
+        w = dense[:, :n_st]
+    bits = torch.arange(grid.sub, dtype=torch.int64, device=w.device)
+    wake = ((w[:, :, None] >> bits) & 1) != 0
+    contact = ((w[:, :, None] >> (bits + 8)) & 1) != 0
+    return wake.reshape(n_tt, -1), contact.reshape(n_tt, -1)
+
+
+def pair_gate(live: torch.Tensor, grid: TileGrid, r0: int, r1: int) -> torch.Tensor:
+    """The (r1 - r0, Ns) bool gate of target rows r0..r1 from a (target
+    tiles, source sub-slices) live matrix."""
+    tiles = torch.arange(r0, r1, device=live.device) // grid.bt
+    return torch.repeat_interleave(live[tiles], grid.bs // grid.sub, dim=1)
 
 
 def _div(k: float, x: torch.Tensor) -> torch.Tensor:
     """``k / x`` for a host float ``k``, as one true division (PyTorch's
     ``k / x`` multiplies by ``x``'s reciprocal: two roundings)."""
     return torch.full((), k, dtype=x.dtype, device=x.device) / x
+
+
+def masked_threads(nt: int, bt: int, sms: int = _H100_SMS) -> int:
+    """Threads per block of a masked launch: the widest of 256, 128, 64, 32
+    that still cuts the target tiles into two blocks for each of the card's
+    ``sms`` SMs, else 32. The sums do not depend on it."""
+    for threads in (256, 128, 64):
+        if (nt // bt) * math.ceil(bt / threads) >= 2 * sms:
+            return threads
+    return 32
+
+
+@functools.cache
+def masked_library():
+    """The two C entry points of ``csrc/masked_pair_kernels.cu``, built at
+    first use and typed once."""
+    lib = ctypes.CDLL(_build.build(MASKED_KERNEL))
+    fns = {}
+    for name in ("downwash_masked", "interact_masked"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def check_columns(name: str, tgt: torch.Tensor, src: torch.Tensor):
+    """Raise unless targets and sources are contiguous (rows, N) float32
+    columns on one CUDA device, few enough for 32-bit indices."""
+    rows = tgt.shape[0]
+    for what, x in (("targets", tgt), ("sources", src)):
+        if x.device.type != "cuda" or x.device != tgt.device:
+            raise ValueError(f"{name} takes CUDA tensors on one device; {what} are on {x.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} computes in float32 only; {what} are {x.dtype}")
+        if x.ndim != 2 or x.shape[0] != rows or not x.is_contiguous():
+            raise ValueError(f"{name} takes contiguous ({rows}, N) columns; {what} have shape "
+                             f"{tuple(x.shape)}")
+    nt, ns = tgt.shape[1], src.shape[1]
+    if max(nt, ns) * 8 >= 2 ** 31:
+        raise ValueError(f"{name} takes fewer than 2^28 drones a side; got {nt} x {ns}")
+
+
+def launch_masked(name: str, tgt: torch.Tensor, src: torch.Tensor, words: torch.Tensor,
+                  grid: TileGrid, c: PairConsts, n_out: int) -> torch.Tensor:
+    """Run the masked kernel ``name`` on stacked float32 CUDA columns and the
+    int32 words of ``grid`` and return its (n_out, Nt) output. Raises on
+    anything the kernel does not take and on a failed launch."""
+    check_columns(name, tgt, src)
+    nt, ns = tgt.shape[1], src.shape[1]
+    if nt % grid.bt or ns % grid.bs or grid.bs % grid.sub or not 1 <= grid.sub <= 8:
+        raise ValueError(f"{name}: tiles of {grid.bt} x {grid.bs} in {grid.sub} sub-slices do "
+                         f"not divide {nt} targets x {ns} sources")
+    if (words.device != tgt.device or words.dtype != torch.int32 or not words.is_contiguous()
+            or words.numel() != (nt // grid.bt) * grid.row_len):
+        raise ValueError(f"{name} takes {nt // grid.bt} x {grid.row_len} contiguous int32 words "
+                         f"on {tgt.device}; got {tuple(words.shape)} {words.dtype} on "
+                         f"{words.device}")
+    if grid.compact and ns // grid.bs > 32768:
+        raise ValueError(f"{name}: a compacted word indexes at most 32768 source tiles")
+    if not grid.compact and grid.row_len != ns // grid.bs:
+        raise ValueError(f"{name}: a dense row holds one word per source tile")
+    out = torch.empty((n_out, nt), dtype=torch.float32, device=tgt.device)
+    host = (ctypes.c_float * len(c))(*c)
+    fn = masked_library()[name]
+    with torch.cuda.device(tgt.device):
+        stream = torch.cuda.current_stream(tgt.device).cuda_stream
+        rc = fn(tgt.data_ptr(), nt, src.data_ptr(), ns, words.data_ptr(), grid.row_len,
+                int(grid.compact), grid.bt, grid.bs, grid.sub,
+                masked_threads(nt, grid.bt, sm_count(tgt.device)),
+                ctypes.addressof(host), len(host), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    return out
 
 
 @functools.cache
@@ -145,22 +280,12 @@ def launch(name: str, tgt: torch.Tensor, src: torch.Tensor, c: PairConsts, n_out
     (n_out, Nt) output. ``tiles``, an int32 CUDA tensor of 2, receives the
     (block, tile) pairs each section evaluated. Raises on anything the kernel
     does not take and on a failed launch."""
-    rows = tgt.shape[0]
-    for what, x in (("targets", tgt), ("sources", src)):
-        if x.device.type != "cuda" or x.device != tgt.device:
-            raise ValueError(f"{name} takes CUDA tensors on one device; {what} are on {x.device}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} computes in float32 only; {what} are {x.dtype}")
-        if x.ndim != 2 or x.shape[0] != rows or not x.is_contiguous():
-            raise ValueError(f"{name} takes contiguous ({rows}, N) columns; {what} have shape "
-                             f"{tuple(x.shape)}")
+    check_columns(name, tgt, src)
     nt, ns = tgt.shape[1], src.shape[1]
-    if max(nt, ns) * 8 >= 2 ** 31:
-        raise ValueError(f"{name} takes fewer than 2^28 drones a side; got {nt} x {ns}")
     if tiles is not None and (tiles.device != tgt.device or tiles.dtype != torch.int32
                               or tiles.numel() != 2):
         raise ValueError(f"{name}'s tile counter is an int32 tensor of 2 on {tgt.device}")
-    split, per = source_split(nt, ns)
+    split, per = source_split(nt, ns, sm_count(tgt.device))
     out = torch.empty((n_out, nt), dtype=torch.float32, device=tgt.device)
     partial = (torch.empty((split, n_out, nt), dtype=torch.float32, device=tgt.device)
                if split > 1 else out)

@@ -3,10 +3,12 @@ contact on every substep (port of the JAX ``runtime/swarm.py``, its
 single-device forms).
 
 ``make_swarm_physics`` is the entry point: it returns ``(init, step,
-export)`` and picks a backend from the fleet's geometry. This slice carries
-the ``"soa"`` backend (``ops/swarm_soa.py``, pair kernels K2, K4 and K5),
-which ``"auto"`` picks for every fleet under 16384 drones and for every
-dense one. ``make_big_swarm_physics`` is the same physics in AoS form over
+export)`` and picks a backend from the fleet's geometry: ``"soa"``
+(``ops/swarm_soa.py``, pair kernels K2, K4 and K5; with ``sorted=True`` the
+persistently sorted loop over the masked kernels K3 and K6) for every fleet
+under 16384 drones and for every dense one, ``"binned"``
+(``ops/swarm_binned.py``, K3 and K6 over padded xy cells) for big spread
+fleets. ``make_big_swarm_physics`` is the same physics in AoS form over
 ``core/dynamics.substep_pyb``.
 """
 
@@ -20,6 +22,7 @@ from gym_pybullet_drones_tpu_torch.envs.spec import Physics
 from gym_pybullet_drones_tpu_torch.ops.collide_pairs import make_collide
 from gym_pybullet_drones_tpu_torch.ops.downwash_pairs import make_downwash
 from gym_pybullet_drones_tpu_torch.ops.interact_pairs import make_interact
+from gym_pybullet_drones_tpu_torch.ops.swarm_binned import binned_geometry, make_binned_swarm
 from gym_pybullet_drones_tpu_torch.ops.swarm_soa import (
     make_sorted_swarm,
     make_swarm_step_soa,
@@ -27,7 +30,10 @@ from gym_pybullet_drones_tpu_torch.ops.swarm_soa import (
     swarm_soa_to_kin,
 )
 
-_LATER = "comes with slice 2b (ops/spatial.py, the binned backend, kernels K3 and K6)"
+_LATER = ("a swarm sharded over a mesh comes with the torch.distributed runtime "
+          "(ROADMAP Queue 1 item 21)")
+_GEOMETRY = ("cell_size", "nx", "ny", "cap")
+_GEOMETRY_OPTS = ("occ_target", "headroom", "max_cap", "min_cell", "cell")
 
 
 def _positions(pos):
@@ -70,23 +76,42 @@ def make_swarm_physics(params: DroneParams, dt, n_substeps: int, collisions: boo
 
     ``backend="auto"`` applies ``select_swarm_backend`` to ``init_pos`` (an
     (N, 3) array or tensor, or the KinState about to be passed to ``init``);
-    without it, auto picks ``"soa"``. ``"soa"`` is the dense SoA step
-    (``ops/swarm_soa.make_swarm_step_soa``; ``z_sort`` passes through).
+    without it, auto picks ``"soa"``.
+
+    * ``"soa"``: the dense SoA step (``ops/swarm_soa.make_swarm_step_soa``;
+      ``z_sort`` passes through), for fleets up to about 16k drones and
+      dense packs where most pairs interact. With ``sorted=True`` the
+      persistently sorted loop (``make_sorted_swarm``; ``order``,
+      ``resort_every``, ``neighbor_cap``, ``bt``, ``bs`` pass through).
+    * ``"binned"``: the padded xy-cell layout, O(N k) pair work
+      (``ops/swarm_binned.make_binned_swarm``), for spread fleets at scale.
+      Its geometry comes from ``init_pos`` (``binned_geometry``; its options
+      pass through) or from explicit ``cell_size``/``nx``/``ny``/``cap``,
+      which win over the computed ones.
+
     ``device=None`` means the CUDA card, whose kernels are built here.
-    The binned backend, ``sorted=True`` and ``mesh`` are not ported yet and
-    raise."""
-    if backend == "auto":
-        backend = select_swarm_backend(init_pos, mesh=mesh)
+    ``mesh`` raises: sharding comes with the ``torch.distributed`` runtime."""
     if mesh is not None:
-        raise NotImplementedError(
-            "a swarm sharded over a mesh comes with the torch.distributed runtime "
-            "(ROADMAP Queue 1 item 21) and the binned backend, which " + _LATER)
+        raise NotImplementedError(_LATER)
+    pos = _positions(init_pos)
+    if backend == "auto":
+        backend = select_swarm_backend(pos)
     if backend == "binned":
-        raise NotImplementedError("the binned swarm backend " + _LATER)
+        geo = {k: backend_opts.pop(k) for k in _GEOMETRY if k in backend_opts}
+        if len(geo) < len(_GEOMETRY):
+            if pos is None:
+                raise ValueError("binned backend needs init_pos (or explicit "
+                                 "cell_size/nx/ny/cap) to size the cell grid")
+            auto = dict(zip(_GEOMETRY, binned_geometry(
+                pos, **{k: backend_opts.pop(k) for k in _GEOMETRY_OPTS if k in backend_opts})))
+            geo = {**auto, **geo}
+        return make_binned_swarm(params, dt, n_substeps, collisions=collisions, device=device,
+                                 **geo, **backend_opts)
     if backend != "soa":
         raise ValueError(f"unknown swarm backend {backend!r}")
     if backend_opts.pop("sorted", False):
-        return make_sorted_swarm(params, dt, n_substeps, collisions=collisions, **backend_opts)
+        return make_sorted_swarm(params, dt, n_substeps, collisions=collisions, device=device,
+                                 **backend_opts)
     step = make_swarm_step_soa(params, dt, n_substeps, collisions=collisions, device=device,
                                **backend_opts)
     return swarm_soa_from_kin, step, swarm_soa_to_kin

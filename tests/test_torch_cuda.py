@@ -1,5 +1,6 @@
-"""Kernels K1 (csrc/velocity_rollout.cu) and K2, K4, K5 (csrc/pair_kernels.cu)
-against their plain PyTorch versions on the card. Needs a CUDA card and nvcc: run on the GPU machine with
+"""Kernels K1 (csrc/velocity_rollout.cu), K2, K4, K5 (csrc/pair_kernels.cu) and
+K3, K6 (csrc/masked_pair_kernels.cu) against their plain PyTorch versions on
+the card. Needs a CUDA card and nvcc: run on the GPU machine with
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -15,6 +16,7 @@ from gym_pybullet_drones_tpu_torch.ops import _pairs as tpairs
 from gym_pybullet_drones_tpu_torch.ops import collide_pairs as tco
 from gym_pybullet_drones_tpu_torch.ops import downwash_pairs as tdw
 from gym_pybullet_drones_tpu_torch.ops import interact_pairs as tia
+from gym_pybullet_drones_tpu_torch.ops import spatial as tsp
 from gym_pybullet_drones_tpu_torch.ops import velocity_rollout as tro
 from gym_pybullet_drones_tpu_torch.ops import velocity_soa as tsoa
 from gym_pybullet_drones_tpu_torch.runtime import rollout as troll
@@ -197,3 +199,113 @@ def test_pair_kernels_reject_what_they_do_not_take(cuda):
     p = tbase.build_params(tbase.AviaryConfig(), "cpu")
     with pytest.raises(ValueError, match="built for"):
         tdw.make_downwash(p, device=cuda)(cols[:3].T.cpu())
+
+
+# ---------------- K3, K6 (csrc/masked_pair_kernels.cu) ----------------
+
+
+def _masked_case(device, n, n_src, bt, bs, sub, with_valid, contact, cone=True, seed=5):
+    """The cloud under a random permutation (the masks must hold in any
+    order), its words in dense and compacted form, and the two grids. With
+    ``with_valid`` a fifth of the slots become padding sentinels."""
+    c = _pair_consts()
+    p = tbase.build_params(tbase.AviaryConfig(), "cpu")
+    tgt, src = _pair_cloud(device, n, n_src)
+    gen = torch.Generator().manual_seed(seed)
+    src = src[:, torch.randperm(src.shape[1], generator=gen).to(device)].contiguous()
+    tgt = src if n_src is None else tgt[:, torch.randperm(n, generator=gen).to(device)].contiguous()
+    valid = src_valid = None
+    if with_valid:
+        src_valid = (torch.rand(src.shape[1], generator=gen) < 0.8).to(device)
+        sent = torch.tensor([0.0, 0.0, -1e9, 0.0, 0.0, 0.0], device=device)[:, None]
+        src = torch.where(src_valid, src, sent).contiguous()
+        if n_src is None:
+            tgt, valid = src, src_valid
+        else:
+            valid = (torch.rand(n, generator=gen) < 0.8).to(device)
+            tgt = torch.where(valid, tgt, sent).contiguous()
+    mask = tsp.subtile_packed_mask(
+        tgt[0], tgt[1], tgt[2], bt, bs, min_dist=c.min_dist if contact else None, params=p,
+        cone=cone, valid=valid, src_cols=None if n_src is None else tuple(src[:3]),
+        src_valid=None if n_src is None else src_valid, sub=sub)
+    nt, ns = tgt.shape[1] // bt, src.shape[1] // bs
+    idx, count_max = tsp.compact_live_tiles(mask, nt, ns, ns)
+    assert int(count_max) <= ns
+    dense = tpairs.TileGrid(bt, bs, sub, ns, False)
+    compact = tpairs.TileGrid(bt, bs, sub, ns, True)
+    real = torch.ones(tgt.shape[1], dtype=torch.bool, device=device) if valid is None else valid
+    return c, tgt, src, mask, idx, dense, compact, real
+
+
+MASKED_SHAPES = [(1024, None, 128, 128, 1), (4096, None, 256, 256, 8), (4096, None, 512, 512, 4),
+                 (3000, None, 100, 300, 3), (4096, 16384, 256, 256, 8), (2048, 6144, 512, 2048, 2)]
+
+
+@pytest.mark.parametrize("with_valid", [False, True])
+@pytest.mark.parametrize("n,n_src,bt,bs,sub", MASKED_SHAPES)
+def test_k3_matches_plain_version(cuda, n, n_src, bt, bs, sub, with_valid):
+    """Dense and compacted grids, square and rectangular, with padding; tiles
+    that are no power of two and wider than one stage included. The compacted
+    pass equals the dense one bit for bit."""
+    c, tgt, src, mask, idx, dense, compact, real = _masked_case(
+        cuda, n, n_src, bt, bs, sub, with_valid, contact=False)
+    t3, s3 = tgt[:3].contiguous(), src[:3].contiguous()
+    got = tdw.downwash_masked_cuda(t3, s3, mask, dense, c)
+    assert torch.equal(tdw.downwash_masked_cuda(t3, s3, idx, compact, c), got)
+    _wake_close(got[real], tdw.downwash_masked_plain(t3, s3, mask, dense, c)[real])
+    _wake_close(got[real], tdw.downwash_plain(t3, s3, c)[real])  # the masks drop nothing
+
+
+@pytest.mark.parametrize("with_valid", [False, True])
+@pytest.mark.parametrize("n,n_src,bt,bs,sub", MASKED_SHAPES)
+def test_k6_matches_plain_version(cuda, n, n_src, bt, bs, sub, with_valid):
+    c, tgt, src, mask, idx, dense, compact, real = _masked_case(
+        cuda, n, n_src, bt, bs, sub, with_valid, contact=True)
+    got = tia.interact_masked_cuda(tgt, src, mask, dense, c)
+    assert torch.equal(tia.interact_masked_cuda(tgt, src, idx, compact, c), got)
+    want = tia.interact_masked_plain(tgt, src, mask, dense, c)
+    _wake_close(got[0][real], want[0][real])
+    _wake_close(got[0][real], tdw.downwash_plain(tgt[:3].contiguous(), src[:3].contiguous(),
+                                                 c)[real])
+    assert float(got[1:4].abs().max()) > 0  # contacts fired
+    unmasked = tco.collide_plain(tgt, src, c)
+    for ref in (want[1:], unmasked):
+        torch.testing.assert_close((tgt + got[1:])[:, real], (tgt + ref)[:, real], rtol=0,
+                                   atol=1e-6)
+
+
+def test_masked_passes_count_launches_and_overflows(cuda):
+    """A cap of one live tile a row overflows on this cloud: the pass takes
+    the overflow branch (the dense masked grid, or z-sorted K2 / K5) and
+    says so; the launch counters follow the kernels that ran."""
+    p = tbase.build_params(tbase.AviaryConfig(), "cpu")
+    cols, _ = _pair_cloud(cuda, 4096)
+    x = [cols[i] for i in range(6)]
+    ref = tdw.make_downwash_masked(p, device=cuda).cols(*x[:3])
+    for fallback, k3, k2 in ((True, 1, 0), (False, 0, 1)):
+        before = (tdw.downwash_masked_cuda.launches, tdw.downwash_cuda.launches,
+                  tdw.make_downwash_masked.overflows)
+        got = tdw.make_downwash_masked(p, neighbor_cap=1, dense_fallback=fallback,
+                                       device=cuda).cols(*x[:3])
+        after = (tdw.downwash_masked_cuda.launches, tdw.downwash_cuda.launches,
+                 tdw.make_downwash_masked.overflows)
+        assert [a - b for a, b in zip(after, before)] == [k3, k2, 1]
+        _wake_close(got, ref)
+    before = (tia.interact_masked_cuda.launches, tia.interact_cuda.launches,
+              tia.make_interact_masked.overflows)
+    tia.make_interact_masked(p, neighbor_cap=16, device=cuda).cols(*x)  # 16 source tiles: holds
+    tia.make_interact_masked(p, neighbor_cap=1, dense_fallback=False, device=cuda).cols(*x)
+    after = (tia.interact_masked_cuda.launches, tia.interact_cuda.launches,
+             tia.make_interact_masked.overflows)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+
+
+def test_masked_kernels_reject_what_they_do_not_take(cuda):
+    c, tgt, src, mask, idx, dense, compact, _ = _masked_case(cuda, 1024, None, 128, 128, 1,
+                                                             False, contact=True)
+    with pytest.raises(ValueError, match="int32 words"):
+        tia.interact_masked_cuda(tgt, src, mask.long(), dense, c)
+    with pytest.raises(ValueError, match="do not divide"):
+        tia.interact_masked_cuda(tgt, src, mask, dense._replace(bt=100), c)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdw.downwash_masked_cuda(tgt[:3].cpu(), src[:3].cpu(), mask, dense, c)

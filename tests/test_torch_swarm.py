@@ -1,8 +1,12 @@
 """The port's coupled swarm (ops/swarm_soa.py, runtime/swarm.py) on the CPU:
 the SoA step against the JAX package's (Pallas in interpret mode) for one
-control step, make_big_swarm_physics against the SoA step, and the backend
-rule. Tolerances are tests/test_soa.py:187-196's: pos 1e-5, vel 1e-4,
-quat 1e-6, ang_v 1e-4, rpy_rates 1e-4 (float32)."""
+control step, make_big_swarm_physics against the SoA step, the persistently
+sorted loop against the JAX package's and against the SoA step, the backend
+rule and the factory. Tolerances are tests/test_soa.py:187-196's: pos 1e-5,
+vel 1e-4, quat 1e-6, ang_v 1e-4, rpy_rates 1e-4 (float32); for the sorted
+loop over 3 control steps, which reorders the pair sums, :347-352's: pos
+1e-4, vel 1e-3, quat 1e-5, on the reorder-robust fleets (the 2 m lattice with
++-0.4 m jitter; the co-planar contact layer)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,8 +21,10 @@ from gym_pybullet_drones_tpu_torch import convert
 from gym_pybullet_drones_tpu_torch.core import dynamics as tdyn
 from gym_pybullet_drones_tpu_torch.core.params import drone_params
 from gym_pybullet_drones_tpu_torch.envs.spec import Physics
+from gym_pybullet_drones_tpu_torch.ops import swarm_binned as tbin
 from gym_pybullet_drones_tpu_torch.ops import swarm_soa as tswarm
 from gym_pybullet_drones_tpu_torch.runtime import swarm as trt
+from torch_parity import jit_reference
 
 LIMITS = dict(pos=1e-5, vel=1e-4, quat=1e-6, ang_v=1e-4, rpy_rates=1e-4)
 KIN = tuple(LIMITS)
@@ -146,21 +152,147 @@ def test_select_swarm_backend_matches_jax(n, pitch):
 
 
 def test_swarm_backends_of_later_slices_raise():
+    """What is left for later: a mesh (the torch.distributed runtime, ROADMAP
+    item 21). The binned and the sorted backends run."""
     tp = drone_params(device="cpu")
-    spread = _geometry(16384, 3.0)
-    with pytest.raises(NotImplementedError, match="slice 2b"):
-        trt.make_swarm_physics(tp, 1 / 240, 5, init_pos=spread, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2b"):
-        trt.make_swarm_physics(tp, 1 / 240, 5, backend="binned", device="cpu")
-    with pytest.raises(NotImplementedError, match="K3 and K6"):
-        trt.make_swarm_physics(tp, 1 / 240, 5, sorted=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    with pytest.raises(NotImplementedError, match="torch.distributed.*item 21"):
         trt.make_swarm_physics(tp, 1 / 240, 5, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="torch.distributed.*item 21"):
+        trt.make_swarm_physics(tp, 1 / 240, 5, backend="binned", cell_size=10.0, nx=2, ny=2,
+                               cap=128, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 21"):
+        tbin.shard_binned_state(object(), {})
     with pytest.raises(ValueError, match="unknown swarm backend"):
         trt.make_swarm_physics(tp, 1 / 240, 5, backend="dense", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             trt.make_swarm_physics(tp, 1 / 240, 5)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            trt.make_swarm_physics(tp, 1 / 240, 5, sorted=True)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            trt.make_swarm_physics(tp, 1 / 240, 5, backend="binned", init_pos=_geometry(64, 3.0))
+
+
+# ---------------- the persistently sorted loop and the factory ----------------
+
+SORTED_LIMITS = dict(pos=1e-4, vel=1e-3, quat=1e-5)
+
+
+def _spread_fleet(collisions):
+    """tests/test_soa.py:568-587: the 2 m lattice with +-0.4 m jitter, or the
+    co-planar contact layer of ``_fleet``."""
+    if collisions:
+        return _fleet(True)
+    rng = np.random.RandomState(11)
+    g = np.stack(np.meshgrid(*[np.arange(8) * 2.0] * 3), -1).reshape(-1, 3)
+    pos = (g + rng.uniform(-0.4, 0.4, g.shape) + [0, 0, 1.0]).astype(np.float32)
+    return dict(_fleet(False), pos=pos)
+
+
+def _run(triple, kin, rpm_cols, steps=3):
+    init, step, export = triple
+    s = init(kin)
+    for _ in range(steps):
+        s = step(s, rpm_cols)
+    return export(s, kin), s
+
+
+@pytest.mark.parametrize("order", ["z", "morton"])
+@pytest.mark.parametrize("collisions", [False, True])
+def test_sorted_swarm_matches_jax_and_soa_step(collisions, order):
+    d = _spread_fleet(collisions)
+    n = d["pos"].shape[0]
+    jp, tp = jax_drone_params(), drone_params(device="cpu")
+    jinit, jstep, jexport = jswarm.make_sorted_swarm(jp, 1 / 240, 5, collisions=collisions,
+                                                     interpret=True, order=order, resort_every=2)
+    jrpm = [jnp.full((n,), float(jp.hover_rpm), jnp.float32)] * 4
+    want, _ = _run((jit_reference(jinit), jit_reference(jstep), jexport), _jkin(d), jrpm)
+    got, s = _run(tswarm.make_sorted_swarm(tp, 1 / 240, 5, collisions=collisions, order=order,
+                                           resort_every=2, device="cpu"),
+                  _tkin(d), _hover_cols(tp, n))
+    soa, _ = _run(trt.make_swarm_physics(tp, 1 / 240, 5, collisions=collisions, device="cpu"),
+                  _tkin(d), _hover_cols(tp, n))
+    if collisions:  # contacts fired
+        assert np.abs(got.pos.numpy()[:, :2] - d["pos"][:, :2]).max() > 1e-4
+    for ref in (want, soa):
+        for k, tol in SORTED_LIMITS.items():
+            np.testing.assert_allclose(getattr(got, k).numpy(), np.asarray(getattr(ref, k)),
+                                       rtol=0, atol=tol, err_msg=k)
+    assert s["t"] == 3 and s["ids"].dtype == torch.int64
+    np.testing.assert_array_equal(np.sort(s["ids"].numpy()), np.arange(n))
+
+
+def test_sorted_swarm_init_sorts_and_export_restores():
+    d = _spread_fleet(False)
+    tp = drone_params(device="cpu")
+    for order in ("z", "morton"):
+        init, _, export = tswarm.make_sorted_swarm(tp, 1 / 240, 5, order=order, device="cpu")
+        s = init(_tkin(d))
+        if order == "z":
+            assert bool((s["pz"][1:] >= s["pz"][:-1]).all())
+        np.testing.assert_array_equal(s["px"].numpy(), d["pos"][s["ids"].numpy(), 0])
+        assert float(s["mag"].abs().max()) > 0  # the carried wake is seeded
+        back = export(s, _tkin(d))
+        for k in ("pos", "quat", "vel", "ang_v"):
+            np.testing.assert_array_equal(getattr(back, k).numpy(), d[k])
+
+
+def test_sorted_swarm_neighbor_backend_matches_masked():
+    """tests/test_soa.py:449-480: neighbor_cap=True equals the loop without
+    compaction bit for bit over 3 control steps (same tiles, same order, same
+    resort schedule), through the factory's ``sorted=True``."""
+    d = _spread_fleet(False)
+    n = d["pos"].shape[0]
+    tp = drone_params(device="cpu")
+    outs = []
+    for cap in (None, True):
+        triple = trt.make_swarm_physics(tp, 1 / 240, 5, collisions=True, sorted=True,
+                                        order="morton", resort_every=2, neighbor_cap=cap, bt=128,
+                                        bs=128, device="cpu")
+        outs.append(_run(triple, _tkin(d), _hover_cols(tp, n))[0])
+    for k in KIN:
+        assert torch.equal(getattr(outs[0], k), getattr(outs[1], k)), k
+
+
+def test_factory_picks_binned_for_a_big_spread_fleet():
+    """A 16384-drone fleet at 3 m pitch: "auto" returns the binned triple
+    (build and one init only at this size), with the geometry of
+    ``binned_geometry``; explicit geometry wins over it."""
+    tp = drone_params(device="cpu")
+    pos = _geometry(16384, 3.0)
+    cell, nx, ny, cap = tbin.binned_geometry(pos)
+    assert cell >= 10.0 and nx * ny * cap >= 16384
+    init, step, export = trt.make_swarm_physics(tp, 1 / 240, 5, init_pos=pos, device="cpu")
+    kin = tdyn.init_kin_state(torch.as_tensor(pos), torch.tensor([[0.0, 0.0, 0.0, 1.0]]).repeat(
+        16384, 1))
+    s = init(kin)
+    assert s["valid"].shape == (nx * ny * cap,) and int(s["valid"].sum()) == 16384
+    assert float(s["mag"].abs().max()) > 0 and s["t"] == 0
+    np.testing.assert_array_equal(export(s, kin).pos.numpy(), pos)
+    small = trt.make_swarm_physics(tp, 1 / 240, 5, init_pos=pos, nx=1, device="cpu")[0]
+    with pytest.raises(ValueError, match=f"{ny * cap} slots < 16384 drones"):
+        small(kin)
+
+
+def test_factory_binned_needs_a_geometry():
+    tp = drone_params(device="cpu")
+    with pytest.raises(ValueError, match="binned backend needs init_pos"):
+        trt.make_swarm_physics(tp, 1 / 240, 5, backend="binned", device="cpu")
+    with pytest.raises(ValueError, match="binned backend needs init_pos"):
+        trt.make_swarm_physics(tp, 1 / 240, 5, backend="binned", cell_size=10.0, nx=2,
+                               device="cpu")
+    d = _spread_fleet(False)
+    n = d["pos"].shape[0]
+    cell, nx, ny, cap = tbin.binned_geometry(d["pos"], occ_target=64)
+    explicit = trt.make_swarm_physics(tp, 1 / 240, 5, backend="binned", cell_size=cell, nx=nx,
+                                      ny=ny, cap=cap, device="cpu")
+    auto = trt.make_swarm_physics(tp, 1 / 240, 5, backend="binned", init_pos=_tkin(d),
+                                  occ_target=64, device="cpu")
+    a, sa = _run(explicit, _tkin(d), _hover_cols(tp, n), steps=1)
+    b, sb = _run(auto, _tkin(d), _hover_cols(tp, n), steps=1)
+    assert sa["valid"].shape == sb["valid"].shape == (nx * ny * cap,)
+    for k in KIN:
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
 
 
 def test_swarm_step_names_its_device():
