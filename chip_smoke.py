@@ -10,7 +10,8 @@ Phases, one or more lines each:
   1. the device, and nvidia-smi's name and power limit;
   2. build every kernel, one nvcc per source started together (K1,
      csrc/velocity_rollout.cu; K2, K4, K5, csrc/pair_kernels.cu; K3, K6,
-     csrc/masked_pair_kernels.cu), and print ptxas's registers and spills;
+     csrc/masked_pair_kernels.cu), and print ptxas's registers and spills,
+     and the blocks of K3 and K6 resident per SM at each source split S;
   3. hold K1 against its plain PyTorch version on the card at E = 4096
      (batch_reset state, formation actions): T = 8 and T = 240 (5 s) at atol
      1e-5 on every column, and at T = 240 finiteness and the ground clamp;
@@ -35,7 +36,8 @@ Phases, one or more lines each:
      card: the cloud under a random permutation, sorted by z and by Morton
      key at N = 4096 and 16384, the cone cull on and off, with a padding
      column, and rectangular 4096 x 16384, at the limits of phase 6 on real
-     slots; the compacted grid equal to the dense masked one bit for bit;
+     slots, padding rows exactly 0; the compacted grid equal to the dense
+     masked one and a second pass equal to the first, bit for bit;
      the share of sub-slices the masks leave live; a forced small cap takes
      the overflow branch and the counters say so;
   7. the coupled swarm's main path through the user entry points:
@@ -68,15 +70,18 @@ Phases, one or more lines each:
      culls off and on), its plain version and its bound; the swarm step per
      control step, split into the pair kernels and the rest, and the card's
      idle share (1 - busy time under torch.profiler / event time);
-  8b. K3 and K6 on both binned fleets, at the tiles, padding and list cap
-     the main path gives them: dense and compacted against their plain
-     versions on the real slots at phase 6's limits, on the lattice and on
-     the lattice with drones in touch, and the wake against the unmasked
-     plain wake of the real drones; then per pass, dense and compacted,
-     beside the bound for the pairs of real drones the masks leave, K2 / K5
-     z-sorted on the same fleet and the plain versions; the mask and
-     compaction ops per pass; the overflow check's host read; the rebin;
-     the binned and the sorted step per control step with phase 8's split;
+  8b. K3 and K6 on both binned fleets and on the sorted loop's fleet (N =
+     16384, 2.5 m, z order, 256 x 256 tiles), at the tiles, padding and list
+     cap the main path gives them: dense and compacted against their plain
+     versions on the real slots at phase 6's limits (padding rows exactly
+     0), on the lattice and on the lattice with drones in touch, and the
+     wake against the unmasked plain wake of the real drones; then per pass,
+     dense and compacted, beside the bound for the pairs of real drones the
+     masks leave and time/bound, at every source split S and with the
+     padding skip off, K2 / K5 z-sorted on the same drones and the plain
+     versions; the blocks the padding skip drops; the mask and compaction
+     ops per pass; the overflow check's host read; the rebin; the binned and
+     the sorted step per control step with phase 8's split;
   9. one JSON line of kernels, the nvidia-smi line, and the result line.
 """
 
@@ -820,8 +825,16 @@ def masked_case(dev, c, params, n, n_src, order, cone, with_valid, contact, seed
     lists, count_max = spatial.compact_live_tiles(words, nt, ns, ns)
     real = torch.ones(n, dtype=torch.bool, device=dev) if valid is None else valid
     return dict(tgt=tgt, src=src, words=words, lists=lists, count_max=int(count_max), real=real,
-                dense=_pairs.TileGrid(bt, bs, sub, ns, False),
+                valid=valid, dense=_pairs.TileGrid(bt, bs, sub, ns, False),
                 compact=_pairs.TileGrid(bt, bs, sub, ns, True))
+
+
+def check_padding_rows(what, outs, real):
+    """Every output of ``outs`` (kernel and plain, (outputs, Nt)) is exactly
+    0 on the padding targets (``real`` false)."""
+    for out in outs:
+        if not bool((out[:, ~real] == 0).all()):
+            fail(f"{what}: a padding target's row is not 0")
 
 
 def live_share(words, grid, section):
@@ -858,15 +871,20 @@ def phase6b_masked(dev, c, params):
             rows, n_out, kernel, plain, _, _ = MASKED[name]
             k = masked_case(dev, c, params, n, n_src, order, cone, with_valid, name == "K6")
             tgt, src, real = k["tgt"][:rows].contiguous(), k["src"][:rows].contiguous(), k["real"]
-            got = kernel(tgt, src, k["words"], k["dense"], c).reshape(n_out, -1)
-            packed = kernel(tgt, src, k["lists"], k["compact"], c).reshape(n_out, -1)
-            want = plain(tgt, src, k["words"], k["dense"], c).reshape(n_out, -1)
+            valid = k["valid"]
+            got = kernel(tgt, src, k["words"], k["dense"], c, valid).reshape(n_out, -1)
+            packed = kernel(tgt, src, k["lists"], k["compact"], c, valid).reshape(n_out, -1)
+            again = kernel(tgt, src, k["lists"], k["compact"], c, valid).reshape(n_out, -1)
+            want = plain(tgt, src, k["words"], k["dense"], c, valid).reshape(n_out, -1)
             torch.cuda.synchronize()
-            expect[name] += 2
+            expect[name] += 3
             what = (f"{name} {'square' if n_src is None else 'rectangular'} {n}x{src.shape[1]} "
                     f"order={order} cone={cone} valid={with_valid}")
             if not torch.equal(packed, got):
                 fail(f"{what}: the compacted grid differs from the dense masked grid")
+            if not torch.equal(again, packed):
+                fail(f"{what}: a second pass differs from the first")
+            check_padding_rows(what, (got, want), real)
             err, note = pair_error("K2" if name == "K3" else "K5", got[:, real], want[:, real],
                                    tgt[:, real])
             errs[name] = max(errs[name], err)
@@ -876,8 +894,10 @@ def phase6b_masked(dev, c, params):
             shares = [live_share(k["words"], k["dense"], sec) for sec in range(1 + (name == "K6"))]
             if order != "perm" and n_src is None and not all(x < 1.0 for x in shares):
                 fail(f"{what}: the masks left every sub-slice live on a sorted cloud")
+            split = _pairs.masked_split(tgt.shape[1], k["dense"].bt, k["dense"].bs, k["dense"].sub)
             print(f"[6b] {what}: tiles {k['dense'].bt}x{k['dense'].bs} in {k['dense'].sub} "
-                  f"sub-slices, compacted = dense masked bit for bit (longest live list "
+                  f"sub-slices, S={split}, compacted = dense masked = a second pass bit for bit, "
+                  f"padding rows 0 ({int((~real).sum())}) (longest live list "
                   f"{k['count_max']} of {k['dense'].row_len}), max |kernel - plain| {err:.3g}, "
                   f"live sub-slice share {[float(f'{x:.4g}') for x in shares]}; {note}",
                   flush=True)
@@ -1114,56 +1134,150 @@ def touching_fleet(pos, seed=3):
     return pos, vel
 
 
-def layout_pass(name, s, c, params, n_cells, cap, nbr):
-    """The masked pass ``name`` as the binned step gives it to its kernel on
-    the state ``s``: a cell block a tile, the live words dense and compacted
-    at the ring cap ``nbr``."""
+def layout_pass(name, cols, valid, c, params, tile, nbr):
+    """The masked pass ``name`` as a swarm step gives it to its kernel:
+    (6, N) columns ``cols`` (binned slots, or the sorted fleet), tiles of
+    ``tile`` targets and sources (a binned cell block, or the sorted loop's
+    256), ``valid`` the real slots or None, the live words dense and
+    compacted at ``nbr`` slots a row."""
     rows = MASKED[name][0]
-    t = torch.stack([s[k] for k in ("px", "py", "pz", "vx", "vy", "vz")[:rows]]).contiguous()
-    sub = spatial.subtile_count(cap)
+    t = cols[:rows].contiguous()
+    n_tiles = t.shape[1] // tile
+    sub = spatial.subtile_count(tile)
     mask_fn = lambda: spatial.subtile_packed_mask(
-        t[0], t[1], t[2], cap, cap, min_dist=c.min_dist if name == "K6" else None,
-        params=params, valid=s["valid"], sub=sub)
+        t[0], t[1], t[2], tile, tile, min_dist=c.min_dist if name == "K6" else None,
+        params=params, valid=valid, sub=sub)
     words = mask_fn()
-    compact_fn = lambda: spatial.compact_live_tiles(words, n_cells, n_cells, nbr)
+    compact_fn = lambda: spatial.compact_live_tiles(words, n_tiles, n_tiles, nbr)
     lists, count_max = compact_fn()
     if int(count_max) > nbr:
         fail(f"{name}: a row holds {int(count_max)} live tiles, over the cap {nbr}")
-    return dict(t=t, words=words, lists=lists, count_max=int(count_max), mask_fn=mask_fn,
-                compact_fn=compact_fn, dense=_pairs.TileGrid(cap, cap, sub, n_cells, False),
-                compact=_pairs.TileGrid(cap, cap, sub, nbr, True))
+    real = torch.ones(t.shape[1], dtype=torch.bool, device=t.device) if valid is None else valid
+    return dict(t=t, valid=valid, real=real, words=words, lists=lists, count_max=int(count_max),
+                mask_fn=mask_fn, compact_fn=compact_fn,
+                dense=_pairs.TileGrid(tile, tile, sub, n_tiles, False),
+                compact=_pairs.TileGrid(tile, tile, sub, nbr, True))
 
 
-def hold_layout_pass(what, name, k, valid, c, contacts):
-    """The kernel on the binned layout ``k``, dense and compacted, against
-    its plain version on the real slots, at phase 6's limits; the wake also
-    against the unmasked plain wake of the real drones alone (the masks and
-    the padding drop and add nothing). Returns the largest |kernel - plain|,
-    a note and the plain version's time."""
+def hold_layout_pass(what, name, k, c, contacts):
+    """The kernel on the layout ``k``, dense and compacted, against its plain
+    version on the real slots, at phase 6's limits; padding rows exactly 0
+    in both; the wake also against the unmasked plain wake of the real
+    drones alone (the masks and the padding drop and add nothing). Returns
+    the largest |kernel - plain|, a note and the plain version's time."""
     _, n_out, kernel, plain, _, _ = MASKED[name]
-    t = k["t"]
-    got = kernel(t, t, k["words"], k["dense"], c).reshape(n_out, -1)
-    packed = kernel(t, t, k["lists"], k["compact"], c).reshape(n_out, -1)
+    t, valid, real = k["t"], k["valid"], k["real"]
+    got = kernel(t, t, k["words"], k["dense"], c, valid).reshape(n_out, -1)
+    packed = kernel(t, t, k["lists"], k["compact"], c, valid).reshape(n_out, -1)
     if not torch.equal(packed, got):
         fail(f"{what}: the compacted grid differs from the dense masked grid")
-    want = plain(t, t, k["words"], k["dense"], c).reshape(n_out, -1)
+    want = plain(t, t, k["words"], k["dense"], c, valid).reshape(n_out, -1)
     torch.cuda.synchronize()
-    ms_plain = event_ms(lambda: plain(t, t, k["words"], k["dense"], c), 1)[0]
-    err, note = pair_error("K2" if name == "K3" else "K5", packed[:, valid], want[:, valid],
-                           t[:, valid], contacts)
-    real = t[:3, valid].contiguous()
-    wake_report(name, packed[0][valid], downwash_plain(real, real, c))
+    check_padding_rows(what, (got, want), real)
+    ms_plain = event_ms(lambda: plain(t, t, k["words"], k["dense"], c, valid), 1)[0]
+    err, note = pair_error("K2" if name == "K3" else "K5", packed[:, real], want[:, real],
+                           t[:, real], contacts)
+    alone = t[:3, real].contiguous()
+    wake_report(name, packed[0][real], downwash_plain(alone, alone, c))
     return err, note, ms_plain
 
 
+def skipped_share(real, tile):
+    """(blocks of 32 targets with no real one, all blocks, the share of the
+    padding targets that sit in such blocks): what K3 and K6 skip."""
+    groups = math.ceil(tile / 32)
+    r = torch.nn.functional.pad(real.reshape(-1, tile), (0, groups * 32 - tile), value=False)
+    empty = ~r.reshape(-1, groups, 32).any(-1)
+    pad = int((~real).sum())
+    in_empty = int(empty.sum()) * 32 - int(empty[:, -1].sum()) * (groups * 32 - tile)
+    return int(empty.sum()), empty.numel(), (in_empty / pad if pad else 0.0)
+
+
+def masked_fleet(what, fleet, touch, c, params, ops, tile, nbr):
+    """K3 and K6 on one fleet at the shapes a swarm step gives them.
+    ``fleet`` and ``touch`` are ((6, N) columns, valid or None): the fleet,
+    and the same fleet with drones in touch. Each kernel is held against its
+    plain version, then timed per pass, dense and compacted, at S from the
+    rule and at every S, and with the padding skip off; beside its bound for
+    the pairs of real drones the masks leave, K2 / K5 z-sorted on the same
+    drones and the plain version. Returns the numbers of the compacted pass."""
+    res = {}
+    cols, valid = fleet
+    real = torch.ones(cols.shape[1], dtype=torch.bool, device=cols.device) if valid is None else valid
+    zsorted = _pairs.sort_by_z(cols[:, real].contiguous())[0]
+    n, slots = int(real.sum()), cols.shape[1]
+    skipped, blocks, pad_share = skipped_share(real, tile)
+    for name, sorted_name in (("K3", "K2"), ("K6", "K5")):
+        rows, n_out, kernel = MASKED[name][:3]
+        label = f"{name} {what}"
+        k = layout_pass(name, cols, valid, c, params, tile, nbr)
+        err, note, ms_plain = hold_layout_pass(label, name, k, c, False)
+        k_touch = layout_pass(name, touch[0], touch[1], c, params, tile, nbr)
+        err_touch, note_touch, _ = hold_layout_pass(label + " with drones in touch", name, k_touch,
+                                                    c, True)
+        t, words, lists, dense, compact = (k[x] for x in ("t", "words", "lists", "dense",
+                                                          "compact"))
+        split = _pairs.masked_split(slots, tile, tile, dense.sub)
+        ms_dense = per_pass_ms(lambda: kernel(t, t, words, dense, c, valid), 10)
+        ms_compact = per_pass_ms(lambda: kernel(t, t, lists, compact, c, valid), 10)
+        by_split = {s: per_pass_ms(lambda: kernel(t, t, lists, compact, c, valid, s), 10)
+                    for s in _pairs.MASKED_SPLITS}
+        ms_noskip = (per_pass_ms(lambda: kernel(t, t, lists, compact, c, None), 10)
+                     if valid is not None else ms_compact)
+        ms_mask = per_pass_ms(k["mask_fn"], 10)
+        ms_lists = per_pass_ms(k["compact_fn"], 10)
+        ms_read = per_pass_ms(lambda: int(k["compact_fn"]()[1]), 10) - ms_lists
+        ms_sorted = per_pass_ms(lambda: pair_pass(sorted_name, zsorted, zsorted, c, True, True), 10)
+        sections = range(1 + (name == "K6"))
+        # The bound counts the pairs of real drones in the live sub-slices;
+        # the kernel also evaluates their padding slots.
+        pairs = [live_pairs(words, dense, sec, valid) for sec in sections]
+        slot_pairs = [live_pairs(words, dense, sec) for sec in sections]
+        flops = pairs[0] * ops["K2"] + (pairs[1] * ops["K4"] if name == "K6" else 0.0)
+        nbytes = (2 * rows + n_out) * slots * 4 + lists.numel() * 4
+        bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+        bound_by = ("operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES_PER_S
+                    else "bytes")
+        res[name] = dict(ms=ms_compact, plain_ms=ms_plain, bound_ms=bound_ms, bound_by=bound_by,
+                         max_abs_err=max(err, err_touch))
+        shares = [live_share(words, dense, sec) for sec in sections]
+        short = lambda xs: [float(f"{x:.4g}") for x in xs]
+        held = _pairs.masked_blocks_per_sm(name == "K6", split)
+        print(f"[8b] {label} ({n} drones in {slots} slots, tiles {tile}x{tile} in {dense.sub} "
+              f"sub-slices, S={split}, {held} blocks of {32 * split} threads resident per SM), "
+              f"kernel against plain on the real slots, dense and compacted (bit-equal, padding "
+              f"rows 0): max |kernel - plain| {err:.3g}, no contact fired; {note}; with drones "
+              f"in touch {err_touch:.3g}; {note_touch}", flush=True)
+        print(f"[8b] {label}: compacted (cap {nbr}, longest list {k['count_max']}) "
+              f"{ms_compact:.5f} ms per pass, dense masked {ms_dense:.5f} ms; bound "
+              f"{bound_ms:.5f} ms by {bound_by}, time/bound {ms_compact / bound_ms:.2f} (live "
+              f"sub-slice share {short(shares)}; pairs of real drones in them {short(pairs)}, "
+              f"slot pairs of the live sub-slices {short(slot_pairs)}, of {slots * slots:.4g}; "
+              f"{flops:.4g} ops / {PEAK_FP32_FLOPS:.3g}; {nbytes} bytes / "
+              f"{PEAK_BYTES_PER_S:.3g} = {nbytes / PEAK_BYTES_PER_S * 1e3:.3g} ms); "
+              f"{sorted_name} z-sorted on the {n} real drones {ms_sorted:.5f} ms; plain "
+              f"{ms_plain:.3f} ms (one run); library_ms null (no PyTorch call computes this "
+              "function)", flush=True)
+        print(f"[8b] {label}: compacted per pass by S "
+              f"{json.dumps({s: float(f'{v:.5g}') for s, v in by_split.items()})} ms; padding "
+              f"skip: {skipped} of {blocks} blocks of 32 targets hold no real one "
+              f"({pad_share:.4f} of the padding targets), {ms_noskip:.5f} ms per pass with "
+              f"valid=None; mask ops {ms_mask:.5f} ms, compaction {ms_lists:.5f} ms, the "
+              f"overflow check's host read {ms_read:.5f} ms per pass (event time with the read "
+              "less without)", flush=True)
+    return res
+
+
 def phase8b_times(dev, c, params, ops):
-    """K3 and K6 on the binned fleets, at the shapes the main path gives
-    them: held against their plain versions, then timed per pass; and the
-    binned and sorted steps per control step. Returns the kernels' numbers
-    at the larger fleet (compacted grid, the main path's form)."""
+    """K3 and K6 on the binned fleets and the sorted fleet, at the shapes the
+    main path gives them: held against their plain versions, then timed per
+    pass; and the binned and sorted steps per control step. Returns the
+    kernels' numbers at the larger binned fleet (compacted grid, the main
+    path's form), with the largest error over all fleets."""
     hover = float(params.hover_rpm)
     res = {}
     identity = lambda n: np.tile([0.0, 0.0, 0.0, 1.0], (n, 1))
+    slot_cols = lambda s: torch.stack([s[k] for k in ("px", "py", "pz", "vx", "vy", "vz")])
     for n, pitch in BINNED_FLEETS:
         pos = lattice(n, pitch)
         cell, nx, ny, cap = binned_geometry(pos)
@@ -1177,60 +1291,21 @@ def phase8b_times(dev, c, params, ops):
         s_touch = init(fleet_kin(*touching_fleet(pos), dev))
         if not (cell_aligned(s, n, cap) and cell_aligned(s_touch, n, cap)):
             fail(f"binned N={n}: a layout of phase 8b is not cell-aligned")
-        valid = s["valid"]
-        slots = valid.shape[0]
         ring = 2 * int(math.ceil(10.0 / cell)) + 1
-        nbr = min(nx * ny, 2 * ring * ring)
-        sub = spatial.subtile_count(cap)
-        real = torch.stack([s[k] for k in ("px", "py", "pz", "vx", "vy", "vz")])[:, valid]
-        zsorted = _pairs.sort_by_z(real.contiguous())[0]
-        for name, sorted_name in (("K3", "K2"), ("K6", "K5")):
-            rows, n_out, kernel = MASKED[name][:3]
-            what = f"{name} binned N={n} pitch {pitch} m"
-            k = layout_pass(name, s, c, params, nx * ny, cap, nbr)
-            t, words, lists, dense, compact = (k[x] for x in ("t", "words", "lists", "dense",
-                                                              "compact"))
-            err, note, ms_plain = hold_layout_pass(what, name, k, valid, c, False)
-            k_touch = layout_pass(name, s_touch, c, params, nx * ny, cap, nbr)
-            err_touch, note_touch, _ = hold_layout_pass(
-                what + " with drones in touch", name, k_touch, s_touch["valid"], c, True)
-            ms_dense = per_pass_ms(lambda: kernel(t, t, words, dense, c), 10)
-            ms_compact = per_pass_ms(lambda: kernel(t, t, lists, compact, c), 10)
-            ms_mask = per_pass_ms(k["mask_fn"], 10)
-            ms_lists = per_pass_ms(k["compact_fn"], 10)
-            ms_read = per_pass_ms(lambda: int(k["compact_fn"]()[1]), 10) - ms_lists
-            ms_sorted = per_pass_ms(
-                lambda: pair_pass(sorted_name, zsorted, zsorted, c, True, True), 10)
-            sections = range(1 + (name == "K6"))
-            # The bound counts the pairs of real drones in the live sub-slices;
-            # the kernel also evaluates their padding slots.
-            pairs = [live_pairs(words, dense, sec, valid) for sec in sections]
-            slot_pairs = [live_pairs(words, dense, sec) for sec in sections]
-            flops = pairs[0] * ops["K2"] + (pairs[1] * ops["K4"] if name == "K6" else 0.0)
-            nbytes = (2 * rows + n_out) * slots * 4 + lists.numel() * 4
-            bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
-            bound_by = ("operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES_PER_S
-                        else "bytes")
-            res[(name, n)] = dict(ms=ms_compact, plain_ms=ms_plain, bound_ms=bound_ms,
-                                  bound_by=bound_by, max_abs_err=max(err, err_touch))
-            shares = [live_share(words, dense, sec) for sec in sections]
-            short = lambda xs: [float(f"{x:.4g}") for x in xs]
-            print(f"[8b] {what} ({slots} slots, tiles {cap}x{cap} in {sub} sub-slices, "
-                  f"{_pairs.masked_threads(slots, cap, _pairs.sm_count(dev))} threads a block), "
-                  f"kernel against plain on the real slots, dense and compacted (bit-equal): max "
-                  f"|kernel - plain| {err:.3g}, no contact fired; {note}; with drones in touch "
-                  f"{err_touch:.3g}; {note_touch}", flush=True)
-            print(f"[8b] {what}: compacted (cap {nbr}, longest list {k['count_max']}) "
-                  f"{ms_compact:.5f} ms per pass, dense masked {ms_dense:.5f} ms; bound "
-                  f"{bound_ms:.5f} ms by {bound_by} (live sub-slice share {short(shares)}; pairs "
-                  f"of real drones in them {short(pairs)}, slot pairs the kernel evaluates "
-                  f"{short(slot_pairs)}, of {slots * slots:.4g}; {flops:.4g} ops / "
-                  f"{PEAK_FP32_FLOPS:.3g}; {nbytes} bytes / {PEAK_BYTES_PER_S:.3g} = "
-                  f"{nbytes / PEAK_BYTES_PER_S * 1e3:.3g} ms); plain {ms_plain:.3f} ms (one run); "
-                  f"{sorted_name} z-sorted on the {n} real drones {ms_sorted:.5f} ms; mask ops "
-                  f"{ms_mask:.5f} ms, compaction {ms_lists:.5f} ms, the overflow check's host "
-                  f"read {ms_read:.5f} ms per pass (event time with the read less without); "
-                  "library_ms null (no PyTorch call computes this function)", flush=True)
+        res[("binned", n)] = masked_fleet(
+            f"binned N={n} pitch {pitch} m", (slot_cols(s), s["valid"]),
+            (slot_cols(s_touch), s_touch["valid"]), c, params, ops, cap,
+            min(nx * ny, 2 * ring * ring))
+        if n == BINNED_FLEETS[0][0]:
+            # The sorted loop's pass on the same drones: z order, 256 x 256
+            # tiles, the dense grid (the list is timed at the full row).
+            cols = torch.cat([kin.pos.T, kin.vel.T]).contiguous()
+            touch = fleet_kin(*touching_fleet(pos), dev)
+            touch = torch.cat([touch.pos.T, touch.vel.T]).contiguous()
+            res[("sorted", n)] = masked_fleet(
+                f"sorted z N={n} pitch {pitch} m", (_pairs.sort_by_z(cols)[0], None),
+                (_pairs.sort_by_z(touch)[0], None), c, params, ops, _pairs.BLOCK,
+                n // _pairs.BLOCK)
 
         runs = [("binned", coll, dict(init_pos=pos)) for coll in (False, True)]
         if n == BINNED_FLEETS[0][0]:
@@ -1276,9 +1351,9 @@ def phase8b_times(dev, c, params, ops):
                       f"{prof['pair_ms']:.4f} ms, other kernels {prof['other_ms']:.4f} ms in "
                       f"{prof['kernels_per_step']:.0f} kernels; wall {prof['wall_ms']:.4f} ms "
                       "with the profiler's overhead", flush=True)
-    # The times of the larger fleet; the error over both.
-    return {name: res[(name, BINNED_FLEETS[-1][0])]
-            | {"max_abs_err": max(res[(name, n)]["max_abs_err"] for n, _ in BINNED_FLEETS)}
+    # The times of the larger binned fleet; the error over all fleets.
+    return {name: res[("binned", BINNED_FLEETS[-1][0])][name]
+            | {"max_abs_err": max(r[name]["max_abs_err"] for r in res.values())}
             for name in MASKED}
 
 
@@ -1303,6 +1378,10 @@ def main():
         for line in _build.ptxas_report(lib).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[2]   {lib}: {line.strip()}", flush=True)
+    for name, contact in (("K3", False), ("K6", True)):
+        held = {s: _pairs.masked_blocks_per_sm(contact, s) for s in _pairs.MASKED_SPLITS}
+        print(f"[2]   {name} blocks (warps) resident per SM by source ranks S: "
+              + ", ".join(f"S={s}: {b} ({b * s})" for s, b in held.items()), flush=True)
 
     cfg = AviaryConfig(task=TASK_VELOCITY, pyb_freq=240, ctrl_freq=48)
     params_cpu, cp_cpu = build_params(cfg, "cpu"), build_ctrl_params(cfg, "cpu")

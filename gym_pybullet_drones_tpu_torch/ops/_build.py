@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
 header, so one ``nvcc`` call builds it in seconds. The shared library goes
 into ``_build/`` beside the package (listed in ``.gitignore``), named by a
 hash of the source, of every file under ``csrc/`` that it includes, and of
-the flags, at first use: a change to a shared header rebuilds every kernel
-that uses it.
+its flags, at first use: a change to a shared header rebuilds every kernel
+that uses it, a change to one source's flags that source's library alone.
 """
 
 import hashlib
@@ -18,10 +18,19 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# sm_90a: Hopper with its arch-specific instructions. No --use_fast_math, and
-# -fmad=false so adds and multiplies round separately as in the plain version.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+def _flags(fmad: bool):
+    # sm_90a: Hopper with its arch-specific instructions. No --use_fast_math.
+    return ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            f"-fmad={str(fmad).lower()}", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+# Each source's flags. K1 (velocity_rollout) equals its plain version bit for
+# bit only if adds and multiplies round separately, as in PyTorch: -fmad=false;
+# K2, K4, K5 (pair_kernels) keep it too. K3, K6 (masked_pair_kernels) are held
+# to tolerances and contract multiply-adds into FMAs: fewer instructions a pair.
+NVCC_FLAGS = {"velocity_rollout": _flags(fmad=False), "pair_kernels": _flags(fmad=False),
+              "masked_pair_kernels": _flags(fmad=True)}
 
 
 def _nvcc() -> str:
@@ -56,7 +65,7 @@ def _sources(path: str, seen=None):
 
 def _paths(name: str):
     src = os.path.join(CSRC, f"{name}.cu")
-    sha = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    sha = hashlib.sha1(" ".join(NVCC_FLAGS[name]).encode())
     for path in _sources(src):
         with open(path, "rb") as fh:
             sha.update(fh.read())
@@ -73,7 +82,7 @@ def build(name: str) -> str:
     if os.path.exists(lib):
         return lib
     tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS[name], "-o", tmp, src], stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):\n{proc.stdout}")

@@ -112,12 +112,13 @@ def unsort(res: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
 
 
 def plain_rows(terms, tgt: torch.Tensor, src: torch.Tensor, n_out: int,
-               gates=None) -> torch.Tensor:
+               gates=None, valid=None) -> torch.Tensor:
     """The plain evaluation of a pass: ``terms(t, s)`` maps target rows
     (rows, r, 1) and sources (rows, 1, Ns) to ``n_out`` (r, Ns) pair-term
     tensors, summed over the sources here, a chunk of target rows at a
     time. ``gates(r0, r1)``, for the masked passes, gives one (r, Ns) bool
-    per output: a pair term counts only where its gate holds. Returns
+    per output: a pair term counts only where its gate holds. ``valid``, a
+    bool column of the targets, zeroes the rows where it is false. Returns
     (n_out, Nt)."""
     nt, ns = tgt.shape[1], src.shape[1]
     out = torch.empty((n_out, nt), dtype=torch.float32, device=tgt.device)
@@ -133,7 +134,7 @@ def plain_rows(terms, tgt: torch.Tensor, src: torch.Tensor, n_out: int,
             parts = [torch.where(x[:, keep], p, 0.0) for x, p in zip(g, terms(t, s[:, :, keep]))]
         for o, p in enumerate(parts):
             out[o, r0:r0 + step] = torch.sum(p, dim=1)
-    return out
+    return out if valid is None else torch.where(valid, out, 0.0)
 
 
 class TileGrid(NamedTuple):
@@ -180,14 +181,26 @@ def _div(k: float, x: torch.Tensor) -> torch.Tensor:
     return torch.full((), k, dtype=x.dtype, device=x.device) / x
 
 
-def masked_threads(nt: int, bt: int, sms: int = _H100_SMS) -> int:
-    """Threads per block of a masked launch: the widest of 256, 128, 64, 32
-    that still cuts the target tiles into two blocks for each of the card's
-    ``sms`` SMs, else 32. The sums do not depend on it."""
-    for threads in (256, 128, 64):
-        if (nt // bt) * math.ceil(bt / threads) >= 2 * sms:
-            return threads
-    return 32
+# Target warps times source ranks that a masked launch aims for: twice the
+# warps an H100 holds at once (132 SMs x 64), since the padding skip leaves
+# about half of a binned layout's warps idle. A constant, not the card's
+# count, so that a pass's bits never depend on the card.
+_MASKED_WARPS = 16384
+MASKED_SPLITS = (1, 2, 4, 8)
+
+
+def masked_split(nt: int, bt: int, bs: int, sub: int) -> int:
+    """S, the source ranks of a masked launch (``csrc/masked_pair_kernels.cu``):
+    the least of 1, 2, 4, 8 with which the target warps, ceil(bt / 32) a
+    target tile, times S reach ``_MASKED_WARPS``, and that divides the
+    sub-slice width ``bs / sub``. The shapes alone fix it, and with it the
+    order of the float32 sums."""
+    warps = (nt // bt) * math.ceil(bt / 32)
+    split = 1
+    while (split < MASKED_SPLITS[-1] and warps * split < _MASKED_WARPS
+           and (bs // sub) % (2 * split) == 0):
+        split *= 2
+    return split
 
 
 @functools.cache
@@ -200,11 +213,25 @@ def masked_library():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
+    fn = lib.masked_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fns["masked_blocks_per_sm"] = fn
     return fns
+
+
+def masked_blocks_per_sm(contact: bool, split: int) -> int:
+    """Blocks of the K3 (``contact`` False) or K6 kernel with ``split``
+    source ranks that one SM of the current card holds at once."""
+    blocks = ctypes.c_int(0)
+    rc = masked_library()["masked_blocks_per_sm"](int(contact), split, ctypes.addressof(blocks))
+    if rc != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed: cudaError {rc}")
+    return blocks.value
 
 
 def check_columns(name: str, tgt: torch.Tensor, src: torch.Tensor):
@@ -225,10 +252,14 @@ def check_columns(name: str, tgt: torch.Tensor, src: torch.Tensor):
 
 
 def launch_masked(name: str, tgt: torch.Tensor, src: torch.Tensor, words: torch.Tensor,
-                  grid: TileGrid, c: PairConsts, n_out: int) -> torch.Tensor:
+                  grid: TileGrid, c: PairConsts, n_out: int, valid=None,
+                  split=None) -> torch.Tensor:
     """Run the masked kernel ``name`` on stacked float32 CUDA columns and the
-    int32 words of ``grid`` and return its (n_out, Nt) output. Raises on
-    anything the kernel does not take and on a failed launch."""
+    int32 words of ``grid`` and return its (n_out, Nt) output. ``valid``, a
+    bool column of the targets or None, marks the real ones: the others'
+    rows come out 0. ``split``: the source ranks S, ``masked_split``'s
+    choice by default. Raises on anything the kernel does not take and on a
+    failed launch."""
     check_columns(name, tgt, src)
     nt, ns = tgt.shape[1], src.shape[1]
     if nt % grid.bt or ns % grid.bs or grid.bs % grid.sub or not 1 <= grid.sub <= 8:
@@ -243,6 +274,15 @@ def launch_masked(name: str, tgt: torch.Tensor, src: torch.Tensor, words: torch.
         raise ValueError(f"{name}: a compacted word indexes at most 32768 source tiles")
     if not grid.compact and grid.row_len != ns // grid.bs:
         raise ValueError(f"{name}: a dense row holds one word per source tile")
+    if valid is not None and (valid.device != tgt.device or valid.dtype != torch.bool
+                              or valid.shape != (nt,) or not valid.is_contiguous()):
+        raise ValueError(f"{name} takes a contiguous bool valid column of {nt} targets on "
+                         f"{tgt.device}; got {tuple(valid.shape)} {valid.dtype} on "
+                         f"{valid.device}")
+    split = masked_split(nt, grid.bt, grid.bs, grid.sub) if split is None else split
+    if split not in MASKED_SPLITS or (grid.bs // grid.sub) % split:
+        raise ValueError(f"{name}: the source ranks are one of {MASKED_SPLITS} that divides the "
+                         f"sub-slice width {grid.bs // grid.sub}; got {split}")
     out = torch.empty((n_out, nt), dtype=torch.float32, device=tgt.device)
     host = (ctypes.c_float * len(c))(*c)
     fn = masked_library()[name]
@@ -250,7 +290,7 @@ def launch_masked(name: str, tgt: torch.Tensor, src: torch.Tensor, words: torch.
         stream = torch.cuda.current_stream(tgt.device).cuda_stream
         rc = fn(tgt.data_ptr(), nt, src.data_ptr(), ns, words.data_ptr(), grid.row_len,
                 int(grid.compact), grid.bt, grid.bs, grid.sub,
-                masked_threads(nt, grid.bt, sm_count(tgt.device)),
+                None if valid is None else valid.data_ptr(), split,
                 ctypes.addressof(host), len(host), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")

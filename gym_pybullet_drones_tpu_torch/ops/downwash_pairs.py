@@ -23,7 +23,9 @@ permutation: ``ops/spatial.py``'s exact live words gate each (target tile,
 source tile) pair and each sub-slice of the source tile, with no sort, gather
 or scatter around the pass. CUDA tensors launch K3
 (``csrc/masked_pair_kernels.cu``, ``downwash_masked``); CPU tensors run
-``downwash_masked_plain``, which reads the same words.
+``downwash_masked_plain``, which reads the same words. Both put exactly 0 in
+the rows of padding targets (``valid`` false); the JAX package evaluates
+those rows against the z = -1e9 sentinels, to at most about 1e-17 N.
 """
 
 import torch
@@ -103,20 +105,26 @@ def make_downwash(params, z_sort=None, device=None):
 
 
 def downwash_masked_plain(tgt: torch.Tensor, src: torch.Tensor, words: torch.Tensor,
-                          grid: _pairs.TileGrid, c: _pairs.PairConsts) -> torch.Tensor:
+                          grid: _pairs.TileGrid, c: _pairs.PairConsts,
+                          valid=None) -> torch.Tensor:
     """K3's plain version: (3, Nt) targets, (3, Ns) sources and the words of
     ``grid`` -> (Nt,) wake. It gates each tile pair and sub-slice by the
-    words' wake bits, as the kernel does."""
+    words' wake bits, as the kernel does, and puts 0 where the bool column
+    ``valid`` of the targets is false."""
     wake, _ = _pairs.slice_gates(words, grid, tgt.shape[1], src.shape[1])
     gates = lambda r0, r1: (_pairs.pair_gate(wake, grid, r0, r1),)
-    return -_pairs.plain_rows(lambda t, s: (wake_terms(t, s, c),), tgt, src, 1, gates)[0]
+    out = _pairs.plain_rows(lambda t, s: (wake_terms(t, s, c),), tgt, src, 1, gates, valid)
+    return -out[0]
 
 
 def downwash_masked_cuda(tgt: torch.Tensor, src: torch.Tensor, words: torch.Tensor,
-                         grid: _pairs.TileGrid, c: _pairs.PairConsts) -> torch.Tensor:
-    """Launch K3 on stacked float32 CUDA columns and int32 CUDA words.
+                         grid: _pairs.TileGrid, c: _pairs.PairConsts, valid=None,
+                         split=None) -> torch.Tensor:
+    """Launch K3 on stacked float32 CUDA columns and int32 CUDA words; the
+    rows where the bool column ``valid`` is false come out 0. ``split``: the
+    source ranks (``_pairs.masked_split`` by default).
     ``downwash_masked_cuda.launches`` counts the launches."""
-    out = _pairs.launch_masked(MASKED_NAME, tgt, src, words, grid, c, 1)
+    out = _pairs.launch_masked(MASKED_NAME, tgt, src, words, grid, c, 1, valid, split)
     downwash_masked_cuda.launches += 1
     return out[0]
 
@@ -134,12 +142,13 @@ def masked_grid(n: int, n_src: int, bt: int, bs, sub) -> _pairs.TileGrid:
 
 
 def run_masked(maker, run, overflow, mask, n: int, dense: _pairs.TileGrid, neighbor_cap,
-               dense_fallback: bool):
+               dense_fallback: bool, valid=None):
     """What the two masked passes share after the words are formed: the dense
     grid, or the compacted one with its overflow branch. ``run(words, grid)``
-    evaluates the pass, ``overflow()`` is the ``dense_fallback=False`` branch.
-    A row over the cap is found by reading one device scalar on the host;
-    ``maker.overflows`` counts the passes that took the branch."""
+    evaluates the pass, ``overflow()`` is the ``dense_fallback=False`` branch,
+    whose rows of padding targets (``valid`` false) are zeroed as the kernels
+    zero them. A row over the cap is found by reading one device scalar on
+    the host; ``maker.overflows`` counts the passes that took the branch."""
     if neighbor_cap is None:
         return run(mask, dense)
     ns = dense.row_len
@@ -148,7 +157,10 @@ def run_masked(maker, run, overflow, mask, n: int, dense: _pairs.TileGrid, neigh
     idx, count_max = spatial.compact_live_tiles(mask, n // dense.bt, ns, cap)
     if int(count_max) > cap:
         maker.overflows += 1
-        return run(mask, dense) if dense_fallback else overflow()
+        if dense_fallback:
+            return run(mask, dense)
+        res = overflow()
+        return res if valid is None else torch.where(valid, res, 0.0)
     return run(idx, dense._replace(row_len=cap, compact=True))
 
 
@@ -170,8 +182,9 @@ def make_downwash_masked(params, bt: int = 256, bs=None, cone: bool = True, neig
     .overflows`` counts those passes.
 
     ``valid``: the bool column of real slots in a padded binned layout; it
-    only tightens the tile bounds, padding being inert per pair (z = -1e9
-    fails dz > 0 against any real drone). ``src``/``src_valid``: (xs, ys, zs)
+    tightens the tile bounds, padding being inert per pair (z = -1e9 fails
+    dz > 0 against any real drone), and the padding targets' rows come out 0
+    (the kernel skips them). ``src``/``src_valid``: (xs, ys, zs)
     columns of another source set with its own padding column, the
     rectangular form. ``device=None`` means the CUDA card, whose kernel is
     built here."""
@@ -184,6 +197,7 @@ def make_downwash_masked(params, bt: int = 256, bs=None, cone: bool = True, neig
 
     def dw_cols(x, y, z, valid=None, src=None, src_valid=None):
         _pairs.check_device(device, x.device, "masked downwash pass")
+        valid = None if valid is None else valid.to(torch.bool).contiguous()
         tgt = _pairs.stack((x, y, z))
         srcs = tgt if src is None else _pairs.stack(src)
         dense = masked_grid(tgt.shape[1], srcs.shape[1], bt, bs, sub)
@@ -193,10 +207,10 @@ def make_downwash_masked(params, bt: int = 256, bs=None, cone: bool = True, neig
             src_valid=None if src is None else src_valid, sub=dense.sub)
         kernel = downwash_masked_cuda if x.device.type == "cuda" else downwash_masked_plain
         res = run_masked(
-            make_downwash_masked, lambda words, grid: kernel(tgt, srcs, words, grid, c),
+            make_downwash_masked, lambda words, grid: kernel(tgt, srcs, words, grid, c, valid),
             lambda: sorted_dw.cols(tgt[0], tgt[1], tgt[2],
                                    src=None if src is None else (srcs[0], srcs[1], srcs[2])),
-            mask, tgt.shape[1], dense, neighbor_cap, dense_fallback)
+            mask, tgt.shape[1], dense, neighbor_cap, dense_fallback, valid)
         return res.to(x.dtype)
 
     def dw(pos):

@@ -24,7 +24,9 @@ triangle and the contact section by the z band, each on its own.
 permutation, square or rectangular: ``ops/spatial.py``'s live words gate the
 wake section (bits 0-7) and the contact section (bits 8-15) of each sub-slice
 separately. CUDA tensors launch K6 (``csrc/masked_pair_kernels.cu``,
-``interact_masked``); CPU tensors run ``interact_masked_plain``.
+``interact_masked``); CPU tensors run ``interact_masked_plain``. Both put
+exactly 0 in the seven rows of padding targets (``valid`` false), where the
+JAX package computes at most about 1e-17 N of wake and no contact.
 """
 
 import torch
@@ -100,10 +102,12 @@ def make_interact(params, max_push: float = 0.01, z_sort=None, device=None):
 
 
 def interact_masked_plain(tgt: torch.Tensor, src: torch.Tensor, words: torch.Tensor,
-                          grid: _pairs.TileGrid, c: _pairs.PairConsts) -> torch.Tensor:
+                          grid: _pairs.TileGrid, c: _pairs.PairConsts,
+                          valid=None) -> torch.Tensor:
     """K6's plain version: (6, Nt) targets, (6, Ns) sources and the words of
     ``grid`` -> (7, Nt). It gates the wake by the words' bits 0-7 and the
-    contact by bits 8-15, per tile pair and sub-slice, as the kernel does."""
+    contact by bits 8-15, per tile pair and sub-slice, as the kernel does,
+    and puts 0 where the bool column ``valid`` of the targets is false."""
     wake, contact = _pairs.slice_gates(words, grid, tgt.shape[1], src.shape[1])
 
     def gates(r0, r1):
@@ -113,14 +117,17 @@ def interact_masked_plain(tgt: torch.Tensor, src: torch.Tensor, words: torch.Ten
     def terms(t, s):
         return (-wake_terms(t, s, c),) + contact_terms(t, s, c)
 
-    return _pairs.plain_rows(terms, tgt, src, 7, gates)
+    return _pairs.plain_rows(terms, tgt, src, 7, gates, valid)
 
 
 def interact_masked_cuda(tgt: torch.Tensor, src: torch.Tensor, words: torch.Tensor,
-                         grid: _pairs.TileGrid, c: _pairs.PairConsts) -> torch.Tensor:
-    """Launch K6 on stacked float32 CUDA columns and int32 CUDA words.
+                         grid: _pairs.TileGrid, c: _pairs.PairConsts, valid=None,
+                         split=None) -> torch.Tensor:
+    """Launch K6 on stacked float32 CUDA columns and int32 CUDA words; the
+    rows where the bool column ``valid`` is false come out 0. ``split``: the
+    source ranks (``_pairs.masked_split`` by default).
     ``interact_masked_cuda.launches`` counts the launches."""
-    out = _pairs.launch_masked(MASKED_NAME, tgt, src, words, grid, c, 7)
+    out = _pairs.launch_masked(MASKED_NAME, tgt, src, words, grid, c, 7, valid, split)
     interact_masked_cuda.launches += 1
     return out
 
@@ -152,6 +159,7 @@ def make_interact_masked(params, bt: int = 256, bs=None, max_push: float = 0.01,
 
     def interact_cols(x, y, z, vx, vy, vz, valid=None, src=None, src_valid=None):
         _pairs.check_device(device, x.device, "masked interaction pass")
+        valid = None if valid is None else valid.to(torch.bool).contiguous()
         tgt = _pairs.stack((x, y, z, vx, vy, vz))
         srcs = tgt if src is None else _pairs.stack(src)
         dense = masked_grid(tgt.shape[1], srcs.shape[1], bt, bs, sub)
@@ -171,8 +179,8 @@ def make_interact_masked(params, bt: int = 256, bs=None, max_push: float = 0.01,
             return torch.stack((mag, *dp, *dv))
 
         res = run_masked(
-            make_interact_masked, lambda words, grid: kernel(tgt, srcs, words, grid, c),
-            overflow, mask, tgt.shape[1], dense, neighbor_cap, dense_fallback)
+            make_interact_masked, lambda words, grid: kernel(tgt, srcs, words, grid, c, valid),
+            overflow, mask, tgt.shape[1], dense, neighbor_cap, dense_fallback, valid)
         res = res.to(x.dtype)
         return res[0], (res[1], res[2], res[3]), (res[4], res[5], res[6])
 

@@ -44,8 +44,8 @@ def main():
     rpm = [torch.full((N,), float(params_cpu.hover_rpm), device=dev) for _ in range(4)]
     launch_masked, seen = _pairs.launch_masked, [0, 0]
 
-    def checking(name, tgt, src, words, grid, c, n_out):
-        out = launch_masked(name, tgt, src, words, grid, c, n_out)
+    def checking(name, tgt, src, words, grid, c, n_out, *args):
+        out = launch_masked(name, tgt, src, words, grid, c, n_out, *args)
         if name != interact_pairs.MASKED_NAME:
             return out
         k = seen[0]

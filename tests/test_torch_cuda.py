@@ -237,33 +237,55 @@ def _masked_case(device, n, n_src, bt, bs, sub, with_valid, contact, cone=True, 
     return c, tgt, src, mask, idx, dense, compact, real
 
 
+# (n, n_src, bt, bs, sub). The source ranks S (ops/_pairs.masked_split) are 4
+# for the fourth (sub-slices of 100 sources), 2 for the seventh (8192 target
+# tiles of one), 1 for the eighth (sub-slices of one source) and 8 for the
+# rest; the tests also force S = 1 on each. A sub-slice of 1024 sources is
+# staged in pieces of 64 S.
 MASKED_SHAPES = [(1024, None, 128, 128, 1), (4096, None, 256, 256, 8), (4096, None, 512, 512, 4),
-                 (3000, None, 100, 300, 3), (4096, 16384, 256, 256, 8), (2048, 6144, 512, 2048, 2)]
+                 (3000, None, 100, 300, 3), (4096, 16384, 256, 256, 8), (2048, 6144, 512, 2048, 2),
+                 (8192, None, 1, 256, 8), (1000, None, 40, 8, 8)]
 
 
+def _padding_rows_zero(got, real):
+    assert bool((got.reshape(-1, got.shape[-1])[:, ~real] == 0).all())
+
+
+@pytest.mark.parametrize("split", [None, 1])
 @pytest.mark.parametrize("with_valid", [False, True])
 @pytest.mark.parametrize("n,n_src,bt,bs,sub", MASKED_SHAPES)
-def test_k3_matches_plain_version(cuda, n, n_src, bt, bs, sub, with_valid):
-    """Dense and compacted grids, square and rectangular, with padding; tiles
-    that are no power of two and wider than one stage included. The compacted
-    pass equals the dense one bit for bit."""
+def test_k3_matches_plain_version(cuda, n, n_src, bt, bs, sub, with_valid, split):
+    """Dense and compacted grids, square and rectangular, with padding (whose
+    rows come out 0) and without (valid=None); tiles that are no power of two
+    and wider than one stage included; the rule's S and S = 1. The compacted
+    pass equals the dense one bit for bit, and a second pass the first."""
     c, tgt, src, mask, idx, dense, compact, real = _masked_case(
         cuda, n, n_src, bt, bs, sub, with_valid, contact=False)
     t3, s3 = tgt[:3].contiguous(), src[:3].contiguous()
-    got = tdw.downwash_masked_cuda(t3, s3, mask, dense, c)
-    assert torch.equal(tdw.downwash_masked_cuda(t3, s3, idx, compact, c), got)
-    _wake_close(got[real], tdw.downwash_masked_plain(t3, s3, mask, dense, c)[real])
+    valid = real if with_valid else None
+    got = tdw.downwash_masked_cuda(t3, s3, mask, dense, c, valid, split)
+    assert torch.equal(tdw.downwash_masked_cuda(t3, s3, idx, compact, c, valid, split), got)
+    assert torch.equal(tdw.downwash_masked_cuda(t3, s3, mask, dense, c, valid, split), got)
+    _padding_rows_zero(got, real)
+    want = tdw.downwash_masked_plain(t3, s3, mask, dense, c, valid)
+    _padding_rows_zero(want, real)
+    _wake_close(got[real], want[real])
     _wake_close(got[real], tdw.downwash_plain(t3, s3, c)[real])  # the masks drop nothing
 
 
+@pytest.mark.parametrize("split", [None, 1])
 @pytest.mark.parametrize("with_valid", [False, True])
 @pytest.mark.parametrize("n,n_src,bt,bs,sub", MASKED_SHAPES)
-def test_k6_matches_plain_version(cuda, n, n_src, bt, bs, sub, with_valid):
+def test_k6_matches_plain_version(cuda, n, n_src, bt, bs, sub, with_valid, split):
     c, tgt, src, mask, idx, dense, compact, real = _masked_case(
         cuda, n, n_src, bt, bs, sub, with_valid, contact=True)
-    got = tia.interact_masked_cuda(tgt, src, mask, dense, c)
-    assert torch.equal(tia.interact_masked_cuda(tgt, src, idx, compact, c), got)
-    want = tia.interact_masked_plain(tgt, src, mask, dense, c)
+    valid = real if with_valid else None
+    got = tia.interact_masked_cuda(tgt, src, mask, dense, c, valid, split)
+    assert torch.equal(tia.interact_masked_cuda(tgt, src, idx, compact, c, valid, split), got)
+    assert torch.equal(tia.interact_masked_cuda(tgt, src, mask, dense, c, valid, split), got)
+    _padding_rows_zero(got, real)
+    want = tia.interact_masked_plain(tgt, src, mask, dense, c, valid)
+    _padding_rows_zero(want, real)
     _wake_close(got[0][real], want[0][real])
     _wake_close(got[0][real], tdw.downwash_plain(tgt[:3].contiguous(), src[:3].contiguous(),
                                                  c)[real])
@@ -272,6 +294,53 @@ def test_k6_matches_plain_version(cuda, n, n_src, bt, bs, sub, with_valid):
     for ref in (want[1:], unmasked):
         torch.testing.assert_close((tgt + got[1:])[:, real], (tgt + ref)[:, real], rtol=0,
                                    atol=1e-6)
+
+
+# Real drones per 256-slot tile of a binned-like layout, each tile's first
+# slots: an all-padding tile, a partial warp, one full warp, partial and full
+# tiles; the rest of a tile is padding, so whole warps and blocks hold none.
+_TILE_FILL = (0, 5, 32, 100, 256, 64, 0, 200)
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_k3_k6_skip_padding_targets(cuda, split):
+    """On a binned-like layout: padding rows exactly 0, real rows at the
+    plain versions' limits and against the unmasked plain passes of the real
+    drones alone, compacted = dense bit for bit, a second pass bit for bit
+    the first; with valid=None the real rows agree too."""
+    c = _pair_consts()
+    p = tbase.build_params(tbase.AviaryConfig(), "cpu")
+    bt = 256
+    cloud, _ = _pair_cloud(cuda, sum(_TILE_FILL))
+    slots = torch.arange(len(_TILE_FILL) * bt, device=cuda)
+    fill = torch.tensor(_TILE_FILL, device=cuda)
+    real = (slots % bt) < fill[slots // bt]
+    cols = torch.tensor([0.0, 0.0, -1e9, 0.0, 0.0, 0.0], device=cuda)[:, None].repeat(
+        1, slots.numel())
+    cols[:, real] = cloud
+    mask = tsp.subtile_packed_mask(cols[0], cols[1], cols[2], bt, bt, min_dist=c.min_dist,
+                                   params=p, valid=real, sub=8)
+    n_tiles = len(_TILE_FILL)
+    idx, _ = tsp.compact_live_tiles(mask, n_tiles, n_tiles, n_tiles)
+    dense = tpairs.TileGrid(bt, bt, 8, n_tiles, False)
+    compact = dense._replace(compact=True)
+    alone = cloud[:3].contiguous()
+    for kernel, plain, rows in ((tdw.downwash_masked_cuda, tdw.downwash_masked_plain, 3),
+                                (tia.interact_masked_cuda, tia.interact_masked_plain, 6)):
+        t = cols[:rows].contiguous()
+        got = kernel(t, t, mask, dense, c, real, split).reshape(-1, t.shape[1])
+        assert torch.equal(kernel(t, t, idx, compact, c, real, split).reshape(got.shape), got)
+        assert torch.equal(kernel(t, t, mask, dense, c, real, split).reshape(got.shape), got)
+        _padding_rows_zero(got, real)
+        want = plain(t, t, mask, dense, c, real).reshape(got.shape)
+        _wake_close(got[0][real], want[0][real])
+        _wake_close(got[0][real], tdw.downwash_plain(alone, alone, c))
+        if rows == 6:
+            assert float(got[1:4].abs().max()) > 0  # contacts fired
+            torch.testing.assert_close((cloud + got[1:][:, real]), (cloud + want[1:][:, real]),
+                                       rtol=0, atol=1e-6)
+        unpadded = kernel(t, t, mask, dense, c, None, split).reshape(got.shape)
+        _wake_close(unpadded[0][real], want[0][real])
 
 
 def test_masked_passes_count_launches_and_overflows(cuda):
@@ -309,3 +378,7 @@ def test_masked_kernels_reject_what_they_do_not_take(cuda):
         tia.interact_masked_cuda(tgt, src, mask, dense._replace(bt=100), c)
     with pytest.raises(ValueError, match="CUDA"):
         tdw.downwash_masked_cuda(tgt[:3].cpu(), src[:3].cpu(), mask, dense, c)
+    with pytest.raises(ValueError, match="bool valid column"):
+        tia.interact_masked_cuda(tgt, src, mask, dense, c, torch.ones(1024, device=cuda))
+    with pytest.raises(ValueError, match="source ranks"):
+        tia.interact_masked_cuda(tgt, src, mask, dense, c, None, 3)

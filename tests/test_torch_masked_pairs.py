@@ -177,6 +177,53 @@ def test_masked_passes_with_valid_column_match_pallas(cap):
         np.testing.assert_allclose(t.numpy()[valid], np.asarray(j)[valid], rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("cap", [None, True])
+def test_masked_passes_zero_padding_rows_and_match_pallas_on_every_row(cap):
+    """The padding rule, dense and compacted: a target whose ``valid`` is
+    false gets exactly 0 in every output (the kernels skip such targets),
+    and every row, padding too, matches the Pallas reference at the limits
+    above (it evaluates padding rows against the z = -1e9 sentinels: at
+    most about 1e-17 N of wake, no contact). The last tile is all padding."""
+    pos, vel = _spread_cloud()
+    valid = np.random.RandomState(6).rand(pos.shape[0]) < 0.8
+    valid[-128:] = False
+    pos = np.where(valid[:, None], pos, np.array([0.0, 0.0, -1e9], np.float32))
+    vel = np.where(valid[:, None], vel, np.float32(0.0))
+    jkw = dict(bt=128, bs=128, interpret=True, neighbor_cap=cap)
+    tkw = dict(bt=128, bs=128, neighbor_cap=cap, device="cpu")
+    jcols = [jnp.asarray(c) for c in np.concatenate([pos, vel], 1).T]
+    pad = ~_t(valid)
+    want = jax_dw_masked(JP, **jkw).cols(*jcols[:3], valid=jnp.asarray(valid))
+    got = make_downwash_masked(TP, **tkw).cols(*_cols(pos), valid=_t(valid))
+    assert bool((got[pad] == 0).all()) and float(got.abs().max()) > 0
+    _wake_close_jax(got.numpy(), want)
+    jmag, jdp, jdv = jax_ia_masked(JP, **jkw).cols(*jcols, valid=jnp.asarray(valid))
+    tmag, tdp, tdv = make_interact_masked(TP, **tkw).cols(*_cols(pos), *_cols(vel),
+                                                          valid=_t(valid))
+    assert all(bool((t[pad] == 0).all()) for t in (tmag,) + tdp + tdv)
+    assert float(torch.stack(tdp).abs().max()) > 0
+    _wake_close_jax(tmag.numpy(), jmag)
+    for t, j in zip(tdp + tdv, jdp + jdv):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=1e-6)
+
+
+def test_masked_split_depends_on_the_shapes_only():
+    """S, the source ranks of K3 and K6: the least power of two up to 8 that
+    brings the target warps to 16384 and divides the sub-slice width; read
+    from (Nt, bt, bs, sub) alone, so the kernels' bits do not depend on the
+    card."""
+    split = _pairs.masked_split
+    assert split(156672, 512, 512, 8) == 4  # the binned 65536-drone layout
+    assert split(40960, 640, 640, 8) == 8  # the binned 16384-drone layout
+    assert split(16384, 256, 256, 8) == 8  # the sorted loop, capped at 8
+    assert split(524288, 32, 256, 8) == 1  # warps enough without a split
+    assert split(3000, 100, 300, 3) == 4  # sub-slices of 100 sources
+    assert split(4096, 64, 12, 4) == 1 and split(4096, 64, 8, 8) == 1  # 3 and 1 a sub-slice
+    for n, bt, bs, sub in ((2048, 512, 2048, 2), (0, 1, 1, 1), (8192, 1, 256, 8)):
+        s = split(n, bt, bs, sub)
+        assert s in _pairs.MASKED_SPLITS and (bs // sub) % s == 0
+
+
 @pytest.mark.parametrize("cap,dense_fallback", [(None, True), (True, True), (1, False)])
 def test_masked_passes_rectangular_match_pallas(cap, dense_fallback):
     """256 targets (the sources' first 256, moved 1 cm, some padding) against
@@ -242,9 +289,11 @@ def test_slice_gates_read_both_forms_alike():
 
 
 def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
-    """A built library is named by a hash of its source and of every csrc/
-    file it includes: a change to pair_terms.cuh renames (so rebuilds) both
-    pair kernel libraries and leaves K1's alone. Needs no compiler."""
+    """A built library is named by a hash of its source, of every csrc/ file
+    it includes and of its own flags: a change to pair_terms.cuh renames (so
+    rebuilds) both pair kernel libraries and leaves K1's alone, and a change
+    to one source's flags renames that library alone. Only K3/K6's source
+    contracts multiply-adds. Needs no compiler."""
     import os
     import shutil
 
@@ -262,3 +311,11 @@ def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
         fh.write("// changed\n")
     after = [_build._paths(n)[1] for n in names]
     assert after[0] == before[0] and after[1] != before[1] and after[2] != before[2]
+    flags = _build.NVCC_FLAGS
+    assert "-fmad=true" in flags[_pairs.MASKED_KERNEL]
+    assert all("-fmad=false" in flags[n] for n in names[:2])
+    for i, name in enumerate(names):
+        with monkeypatch.context() as m:
+            m.setitem(flags, name, flags[name] + ("-lineinfo",))
+            changed = [_build._paths(n)[1] for n in names]
+        assert [a != b for a, b in zip(changed, after)] == [k == i for k in range(3)]
