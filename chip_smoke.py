@@ -9,9 +9,10 @@ or on any failed check. Imports nothing of JAX or of the JAX package.
 Phases, one or more lines each:
   1. the device, and nvidia-smi's name and power limit;
   2. build every kernel, one nvcc per source started together (K1,
-     csrc/velocity_rollout.cu; K2, K4, K5, csrc/pair_kernels.cu; K3, K6,
-     csrc/masked_pair_kernels.cu), and print ptxas's registers and spills,
-     and the blocks of K3 and K6 resident per SM at each source split S;
+     csrc/velocity_rollout.cu; K2, K5, csrc/wake_pair_kernels.cu; K4,
+     csrc/pair_kernels.cu; K3, K6, csrc/masked_pair_kernels.cu), and print
+     ptxas's registers and spills, the units of K2 and K5 and the blocks of
+     K3 and K6 (at each source split S) resident per SM;
   3. hold K1 against its plain PyTorch version on the card at E = 4096
      (batch_reset state, formation actions): T = 8 and T = 240 (5 s) at atol
      1e-5 on every column, and at T = 240 finiteness and the ground clamp;
@@ -66,23 +67,32 @@ Phases, one or more lines each:
      cone cull off; one control step of the
      binned kernel path on the card against the binned plain path on the CPU
      at N = 4096, on towers and on co-planar pairs beside towers;
-  8. times with CUDA events: each pair kernel per pass (N = 4096 and 16384,
-     culls off and on), its plain version and its bound; the swarm step per
-     control step, split into the pair kernels and the rest, and the card's
-     idle share (1 - busy time under torch.profiler / event time);
+  8. times: each pair kernel per pass (N = 4096 and 16384, culls off and
+     on), with CUDA events and as device time under torch.profiler (the
+     events of a pass at N = 4096 time the host), its plain version and its
+     bound (``op_bound``): the largest of the operations ceiling (each
+     term's gate on the pairs the pass must test, the rest of the term on
+     the pairs its gate lets through), the special-function (MUFU) ceiling
+     and the bytes ceiling; the swarm step per control step, split
+     into the pair kernels and the rest, and the card's idle share (1 - busy
+     time under torch.profiler / event time);
   8b. K3 and K6 on both binned fleets and on the sorted loop's fleet (N =
      16384, 2.5 m, z order, 256 x 256 tiles), at the tiles, padding and list
      cap the main path gives them: dense and compacted against their plain
      versions on the real slots at phase 6's limits (padding rows exactly
      0), on the lattice and on the lattice with drones in touch, and the
      wake against the unmasked plain wake of the real drones; then per pass,
-     dense and compacted, beside the bound for the pairs of real drones the
-     masks leave and time/bound, at every source split S and with the
+     dense and compacted, with events and device time, beside the bound
+     (phase 8's, for the pairs of real drones the masks leave) and
+     time/bound, at every source split S and with the
      padding skip off, K2 / K5 z-sorted on the same drones and the plain
      versions; the blocks the padding skip drops; the mask and compaction
      ops per pass; the overflow check's host read; the rebin; the binned and
      the sorted step per control step with phase 8's split;
-  9. one JSON line of kernels, the nvidia-smi line, and the result line.
+  9. one JSON line of kernels (``ms``: CUDA events around the wrapper's
+     calls; ``device_ms``: the device time of its kernels and memsets under
+     torch.profiler, null if not measured), the nvidia-smi line, and the
+     result line.
 """
 
 import contextlib
@@ -92,7 +102,7 @@ import statistics
 import subprocess
 import sys
 import time
-from collections import Counter
+from collections import Counter, defaultdict
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -171,6 +181,11 @@ REPEATS = 5
 # that of the function, for a kernel that fuses every multiply-add pair.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# The special-function unit (rcp, ex2, rsqrt): 16 results a clock an SM on
+# sm_90 (CUDA C++ Programming Guide, arithmetic instruction throughput), 132
+# SMs at the 1.98 GHz boost clock. A wake pair needs two (rcp, ex2), a contact
+# pair one (rsqrt).
+PEAK_MUFU_PER_S = 132 * 16 * 1.98e9
 # Elementwise ops counted as one operation per element; clamp counts one per
 # bound it applies. Transcendentals (sin, cos, atan2, asin, sqrt) count one
 # each, though each costs many instructions on the card.
@@ -181,11 +196,18 @@ _OPS = {"add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "sin", "cos",
 # steps of the main path.
 SWARM_N = (4096, 16384)
 SWARM_T = 48
-PAIRS = {  # name -> (rows in, outputs, kernel, plain version, TPU kernel)
-    "K2": (3, 1, downwash_cuda, downwash_plain, "gym_pybullet_drones_tpu/ops/downwash_pallas.py:140"),
-    "K4": (6, 6, collide_cuda, collide_plain, "gym_pybullet_drones_tpu/ops/collide_pallas.py:145"),
-    "K5": (6, 7, interact_cuda, None, "gym_pybullet_drones_tpu/ops/interact_pallas.py:160"),
+PAIRS = {  # name -> (rows in, outputs, kernel, plain version, TPU kernel, source)
+    "K2": (3, 1, downwash_cuda, downwash_plain, "gym_pybullet_drones_tpu/ops/downwash_pallas.py:140",
+           "gym_pybullet_drones_tpu_torch/csrc/wake_pair_kernels.cu"),
+    "K4": (6, 6, collide_cuda, collide_plain, "gym_pybullet_drones_tpu/ops/collide_pallas.py:145",
+           "gym_pybullet_drones_tpu_torch/csrc/pair_kernels.cu"),
+    "K5": (6, 7, interact_cuda, None, "gym_pybullet_drones_tpu/ops/interact_pallas.py:160",
+           "gym_pybullet_drones_tpu_torch/csrc/wake_pair_kernels.cu"),
 }
+# The device kernels of the pair passes, by name in a torch.profiler trace:
+# K2 and K5 (wake_pair_kernel), K4 (collide_kernel and its reduce_kernel),
+# K3 and K6 (masked_pair_kernel).
+PAIR_KERNEL_NAMES = ("wake_pair_kernel", "collide_kernel", "reduce_kernel", "masked_pair_kernel")
 MASKED = {  # name -> (rows in, outputs, kernel, plain version, maker, TPU kernel)
     "K3": (3, 1, downwash_masked_cuda, downwash_masked_plain, make_downwash_masked,
            "gym_pybullet_drones_tpu/ops/downwash_pallas.py:304"),
@@ -301,13 +323,15 @@ def pair_cloud(device, n, n_src=None, seed=11):
 def pair_pass(name, tgt, src, c, cull, square, plain=False, tiles=None):
     """One pass of the kernel ``name`` (or its plain version) on stacked
     columns: (outputs, Nt)."""
-    rows, n_out, kernel, plain_fn, _ = PAIRS[name]
+    rows, n_out, kernel, plain_fn = PAIRS[name][:4]
     t = tgt[:rows].contiguous()
     s = t if square else src[:rows].contiguous()
     if name == "K5":
         out = interact_plain(t, c) if plain else kernel(t, c, cull=cull, tiles=tiles)
     elif plain:
         out = plain_fn(t, s, c)
+    elif name == "K4":
+        out = kernel(t, s, c, cull=cull, tiles=tiles)
     else:
         out = kernel(t, s, c, cull=cull, square=square, tiles=tiles)
     return out.reshape(n_out, -1)
@@ -379,13 +403,31 @@ def reset_pair_launches():
         MASKED[name][4].overflows = 0
 
 
+def pair_gates(t, s, c, wake=True, contact=True):
+    """The tests that decide whether a pair term is not 0, formed as the
+    plain pair terms form them: the wake's dz > 0 and dxy^2 < 100 and the
+    contact's eps^2 < d^2 < min_dist^2 (d^2 = dxy^2 + dz^2 where both run)."""
+    dx, dy, dz = s[0] - t[0], s[1] - t[1], s[2] - t[2]
+    dxy2 = dx * dx + dy * dy
+    out = [(dz > 0) & (dxy2 < 100.0)] if wake else []
+    if contact:
+        d2 = dxy2 + dz * dz
+        out.append((d2 < c.min_dist2) & (d2 > c.eps2))
+    return out
+
+
 def ops_per_pair(c):
     """Operations per pair, counted on the plain pair terms (1 x 1 inputs),
-    plus one accumulating add per output."""
+    plus one accumulating add per output; and "gate K2", "gate K4", "gate
+    K5": those of ``pair_gates`` for the wake, the contact and both, which
+    every pair a pass evaluates needs. The rest of a term is needed only on
+    the pairs its gate lets through."""
     t, s = torch.ones((6, 1, 1)), torch.full((6, 1, 1), 0.75)
     wake = _count(lambda: wake_terms(t, s, c)).total() + 1
     contact = _count(lambda: contact_terms(t, s, c)).total() + 6
-    return {"K2": wake, "K4": contact, "K5": wake + contact}
+    gate = lambda **kw: _count(lambda: pair_gates(t, s, c, **kw)).total()
+    return {"K2": wake, "K4": contact, "K5": wake + contact, "gate K2": gate(contact=False),
+            "gate K4": gate(wake=False), "gate K5": gate()}
 
 
 def lattice(n, pitch=0.5, seed=0):
@@ -498,12 +540,10 @@ def per_pass_ms(fn, reps, repeats=REPEATS):
     return statistics.median(event_ms(lambda: [fn() for _ in range(reps)], repeats)) / reps
 
 
-def profile_steps(fn, steps):
-    """Run ``fn`` ``steps`` times under torch.profiler and read the device's
-    kernels from its chrome trace: per step, the host wall time, the time
-    the card was busy (the union of kernel intervals), and the kernel time
-    of the pair kernels and of all others, in ms. None if the trace holds no
-    kernel."""
+def traced_kernels(fn, steps):
+    """Run ``fn`` once, then ``steps`` times under torch.profiler: ``(the
+    device kernels and memsets of the chrome trace in time order, host wall
+    seconds)``."""
     import os
     import tempfile
 
@@ -522,11 +562,41 @@ def profile_steps(fn, steps):
         prof.export_chrome_trace(path)
         with open(path) as fh:
             events = json.load(fh)["traceEvents"]
-    kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    return sorted((e for e in events if e.get("cat") in ("kernel", "gpu_memset")),
+                  key=lambda e: e["ts"]), wall
+
+
+def device_ms(fn, reps=20):
+    """The device time of one call of ``fn``, a kernel's wrapper, under
+    torch.profiler over ``reps`` calls, in ms: for each kernel or memset
+    name in the trace, its mean duration times the launches a call makes of
+    it (its count over ``reps``, rounded), summed. The trace on the H100
+    machine now and then loses or gains an event; the rounding keeps such
+    an event from moving the sum by a launch. None (printed as not
+    measured) if none of three traces holds a launch a call."""
+    for _ in range(3):
+        kernels, _ = traced_kernels(fn, reps)
+        durs = defaultdict(list)
+        for e in kernels:
+            durs[e["name"]].append(e["dur"])
+        per_call = {name: round(len(d) / reps) for name, d in durs.items()}
+        if any(per_call.values()):
+            return sum(statistics.fmean(d) * per_call[name] for name, d in durs.items()) / 1e3
+    return None
+
+
+def profile_steps(fn, steps):
+    """Run ``fn`` ``steps`` times under torch.profiler and read the device's
+    kernels from its chrome trace: per step, the host wall time, the time
+    the card was busy (the union of kernel and memset intervals), and the
+    kernel time of the pair kernels (``PAIR_KERNEL_NAMES``) and of all other
+    kernels and memsets, in ms.
+    None if the trace holds no kernel."""
+    kernels, wall = traced_kernels(fn, steps)
     if not kernels:
         return None
     pair = sum(e["dur"] for e in kernels
-               if "pair_kernel" in e["name"] or "reduce_kernel" in e["name"])
+               if any(name in e["name"] for name in PAIR_KERNEL_NAMES))
     busy, end = 0.0, -math.inf
     for e in kernels:  # the union of the kernels' [ts, ts + dur) intervals
         lo, hi = e["ts"], e["ts"] + e["dur"]
@@ -552,8 +622,14 @@ def phase6_pairs(dev, c, params):
             tgt = _pairs.sort_by_z(tgt)[0]
             src = tgt if square else _pairs.sort_by_z(src)[0]
         total = math.ceil(nt / _pairs.BLOCK) * math.ceil(src.shape[1] / _pairs.BLOCK)
-        split, per = _pairs.source_split(nt, src.shape[1], _pairs.sm_count(dev))
+        split, per = _pairs.source_split(nt, src.shape[1])
         for name in (PAIRS if square else ("K2", "K4")):
+            if name == "K4":
+                schedule = f"S={split} ({per} tiles a chunk)"
+            else:
+                units, per_unit = _pairs.pair_units(nt, src.shape[1], sort and square and name == "K2")
+                schedule = (f"{len(units)} units of up to {per_unit} tiles, "
+                            f"{int(units[:, 3].max())} a block at most")
             tiles = torch.zeros(2, dtype=torch.int32, device=dev)
             got = pair_pass(name, tgt, src, c, sort, square, tiles=tiles)
             want = pair_pass(name, tgt, src, c, sort, square, plain=True)
@@ -568,7 +644,7 @@ def phase6_pairs(dev, c, params):
             if not sort and not all(e == total for e in evaluated):
                 fail(f"{name} N={nt}x{src.shape[1]} unsorted: {evaluated} tiles of {total}")
             print(f"[6] {name} {'square' if square else 'rectangular'} {nt}x{src.shape[1]} "
-                  f"z_sort={sort}: S={split} ({per} tiles a chunk), max |kernel - plain| "
+                  f"z_sort={sort}: {schedule}, max |kernel - plain| "
                   f"{err:.3g}, tiles evaluated {evaluated} of {total} "
                   f"(culled {[total - e for e in evaluated]}){'; ' + note if note else ''}",
                   flush=True)
@@ -707,12 +783,63 @@ def phase7_swarm(dev, params):
     return main
 
 
+def needed_pairs(cols, c, gates=None, real=None):
+    """(wake pairs, contact pairs) of the square fleet ``cols`` (3 or more,
+    N) on the card: the pairs that ``pair_gates`` lets through, whose wake
+    term needs a reciprocal and an exponent, or whose contact term needs a
+    reciprocal square root. ``gates(r0, r1)``, for the masked passes, gives
+    the (wake, contact) (r1 - r0, N) bools of the pairs the masks leave, and
+    ``real`` the bool column of real slots: only pairs of real drones that
+    the masks leave are counted. In row chunks."""
+    n, wake, touch = cols.shape[1], 0, 0
+    for r0 in range(0, n, 1024):
+        r1 = min(r0 + 1024, n)
+        w, t = pair_gates(cols[:3, r0:r1, None], cols[:3, None, :], c)
+        if gates is not None:
+            gw, gc = gates(r0, r1)
+            w, t = w & gw, t & gc
+        if real is not None:
+            both = real[r0:r1, None] & real[None, :]
+            w, t = w & both, t & both
+        wake += int(w.sum())
+        touch += int(t.sum())
+    return wake, touch
+
+
+def op_bound(kind, ops, gated, needed, nbytes):
+    """``(bound ms, bound_by, the ceilings in ms)`` of one pass of the
+    function of ``kind`` (K2: the wake, K4: the contact, K5: both), the
+    largest of three ceilings. Operations over the float32 peak: the gates
+    on the pairs the pass must test, ``gated`` = (wake, contact) pairs (all
+    pairs, or those the culls or masks leave), the contact's own part of
+    the gate only where both run, and the rest of each term on the pairs
+    its gate lets through, ``needed`` = (wake, contact) from
+    ``needed_pairs``. Special-function ops over the MUFU rate: two a wake
+    pair and one a contact pair of ``needed``. ``nbytes`` over the memory
+    rate."""
+    wake_ops, contact_ops = ops["K2"] - ops["gate K2"], ops["K4"] - ops["gate K4"]
+    if kind == "K2":
+        flops, mufu = ops["gate K2"] * gated[0] + wake_ops * needed[0], 2 * needed[0]
+    elif kind == "K4":
+        flops, mufu = ops["gate K4"] * gated[1] + contact_ops * needed[1], needed[1]
+    else:
+        flops = (ops["gate K2"] * gated[0] + (ops["gate K5"] - ops["gate K2"]) * gated[1]
+                 + wake_ops * needed[0] + contact_ops * needed[1])
+        mufu = 2 * needed[0] + needed[1]
+    ceilings = {"float32 operations": flops / PEAK_FP32_FLOPS * 1e3,
+                "MUFU": mufu / PEAK_MUFU_PER_S * 1e3, "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
+    top = max(ceilings, key=ceilings.get)
+    return ceilings[top], "bytes" if top == "bytes" else "operations", ceilings
+
+
 def phase8_times(dev, c, params, ops):
-    """Each pair kernel's time per pass, its plain version's and its bound;
-    then the swarm step per control step."""
+    """Each pair kernel's time per pass (CUDA events and device time), its
+    plain version's and its bound; then the swarm step per control step."""
     res = {}
+    fmt = lambda d: json.dumps({k: None if v is None else float(f"{v:.5g}") for k, v in d.items()})
     for n in SWARM_N:
         cols = pair_cloud(dev, n)[0]
+        need = needed_pairs(cols, c)
         for sort in (False, True) if n >= _pairs.Z_SORT_MIN_N else (False,):
             t = _pairs.sort_by_z(cols)[0] if sort else cols
             total = math.ceil(n / _pairs.BLOCK) ** 2
@@ -720,30 +847,29 @@ def phase8_times(dev, c, params, ops):
                 tiles = torch.zeros(2, dtype=torch.int32, device=dev)
                 pair_pass(name, t, t, c, sort, True, tiles=tiles)
                 counts = tiles.tolist()
-                k_ms = per_pass_ms(lambda: pair_pass(name, t, t, c, sort, True), 20)
+                run = lambda: pair_pass(name, t, t, c, sort, True)
+                k_ms, d_ms = per_pass_ms(run, 20), device_ms(run)
                 p_ms = per_pass_ms(lambda: pair_pass(name, t, t, c, sort, True, plain=True), 1, 3)
+                # The pairs the gates must test: all N^2, or those of the
+                # tiles the culls leave.
+                gated = [x * _pairs.BLOCK ** 2 for x in counts] if sort else [n * n] * 2
                 rows, n_out = PAIRS[name][:2]
-                flops = ops[name] * n * n
-                nbytes = (rows + n_out) * n * 4
-                bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
-                bound_by = ("operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES_PER_S
-                            else "bytes")
-                if name == "K2":
-                    left = counts[0] * _pairs.BLOCK ** 2 * (ops["K2"])
-                elif name == "K4":
-                    left = counts[1] * _pairs.BLOCK ** 2 * (ops["K4"])
-                else:
-                    left = (counts[0] * ops["K2"] + counts[1] * ops["K4"]) * _pairs.BLOCK ** 2
-                left_ms = left / PEAK_FP32_FLOPS * 1e3
-                res[(name, n, sort)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                                            bound_by=bound_by)
-                print(f"[8] {name} N={n} z_sort={sort}: {k_ms:.5f} ms per pass "
-                      f"({n * n / (k_ms / 1e3):.4g} pairs/s over N^2), plain {p_ms:.3f} ms; "
-                      f"bound {bound_ms:.5f} ms by {bound_by} ({ops[name]} ops per pair x "
-                      f"{n * n} pairs = {flops:.4g} ops / {PEAK_FP32_FLOPS:.3g}; {nbytes} bytes / "
-                      f"{PEAK_BYTES_PER_S:.3g} = {nbytes / PEAK_BYTES_PER_S * 1e3:.3g} ms); tiles "
-                      f"left by the culls {counts} of {total}, whose pairs need {left_ms:.5f} ms; "
-                      "library_ms null (no PyTorch call computes this function)", flush=True)
+                bound_ms, bound_by, ceilings = op_bound(name, ops, gated, need,
+                                                        (rows + n_out) * n * 4)
+                res[(name, n, sort)] = dict(ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                                            bound_ms=bound_ms, bound_by=bound_by)
+                device = ("not measured" if d_ms is None else
+                          f"{d_ms:.5f} ms ({n * n / (d_ms / 1e3):.4g} pairs/s over N^2, time/bound "
+                          f"{d_ms / bound_ms:.2f})")
+                print(f"[8] {name} N={n} z_sort={sort}: device {device} per pass "
+                      f"(torch.profiler), events {k_ms:.5f} ms (time/bound {k_ms / bound_ms:.2f}), "
+                      f"plain {p_ms:.3f} ms; bound {bound_ms:.5f} ms by {bound_by}, ceilings "
+                      f"{fmt(ceilings)} ms (gates on {gated} wake / contact pairs, the rest of "
+                      f"the terms on {need[0]} wake pairs with dz > 0 within 10 m and {need[1]} "
+                      f"pairs in touch; ops per pair {ops[name]} in all, {ops['gate ' + name]} "
+                      f"of gates; {PEAK_FP32_FLOPS:.3g} ops/s, {PEAK_MUFU_PER_S:.4g} MUFU/s); "
+                      f"tiles left by the culls {counts} of {total}; library_ms null (no PyTorch "
+                      "call computes this function)", flush=True)
 
     hover = float(params.hover_rpm)
     per_step = {False: dict(K2=5, K4=0, K5=0), True: dict(K2=1, K4=1, K5=4)}
@@ -755,10 +881,13 @@ def phase8_times(dev, c, params, ops):
         # depend on the geometry), z-sorted as the main path sorts it.
         cols = torch.cat([kin.pos.T, kin.vel.T]).contiguous()
         cols = _pairs.sort_by_z(cols)[0] if sort else cols
-        lat_ms = {name: per_pass_ms(lambda: pair_pass(name, cols, cols, c, sort, True), 20)
-                  for name in PAIRS}
-        print(f"[8] pair kernels on the swarm lattice N={n} z_sort={sort}: ms per pass "
-              f"{json.dumps({k: float(f'{v:.5g}') for k, v in lat_ms.items()})}", flush=True)
+        runs = {name: (lambda name=name: pair_pass(name, cols, cols, c, sort, True))
+                for name in PAIRS}
+        lat_events = {name: per_pass_ms(run, 20) for name, run in runs.items()}
+        lat_dev = {name: device_ms(run) for name, run in runs.items()}
+        print(f"[8] pair kernels on the swarm lattice N={n} z_sort={sort}: ms per pass, device "
+              f"(torch.profiler; null: not measured) {fmt(lat_dev)}, events {fmt(lat_events)}",
+              flush=True)
         for coll in (False, True):
             step = make_swarm_step_soa(params, 1 / 240, 5, collisions=coll)
             state = [swarm_soa_from_kin(kin)]
@@ -767,11 +896,15 @@ def phase8_times(dev, c, params, ops):
                 state[0] = step(state[0], rpm)
 
             ms = per_pass_ms(advance, 10, 3)
-            pair_ms = sum(k * lat_ms[name] for name, k in per_step[coll].items())
+            if all(lat_dev[name] is not None for name, k in per_step[coll].items() if k):
+                pair_ms = sum(k * lat_dev[name] for name, k in per_step[coll].items() if k)
+                split = (f"pair kernels {pair_ms:.4f} ms (launches per step x device ms per pass "
+                         f"above), the rest (substep chain, sort, gather, scatter, stacking) "
+                         f"{ms - pair_ms:.4f} ms")
+            else:
+                split = "pair kernels' device time not measured"
             print(f"[8] swarm step N={n} collisions={coll} z_sort={sort}: {ms:.4f} ms per control "
-                  f"step ({n / (ms / 1e3):.6g} drone-steps/s); pair kernels {pair_ms:.4f} ms "
-                  f"(launches per step x ms per pass above), the rest (substep chain, sort, "
-                  f"gather, scatter, stacking) {ms - pair_ms:.4f} ms", flush=True)
+                  f"step ({n / (ms / 1e3):.6g} drone-steps/s); {split}", flush=True)
             prof = profile_steps(advance, 5)
             if prof is None:
                 print("[8]   torch.profiler saw no device kernel: not measured", flush=True)
@@ -781,8 +914,9 @@ def phase8_times(dev, c, params, ops):
                 print(f"[8]   under torch.profiler, per control step: card busy "
                       f"{prof['busy_ms']:.4f} ms, idle share {1 - prof['busy_ms'] / ms:.4f} "
                       f"(1 - busy / {ms:.4f} ms event time), pair kernels "
-                      f"{prof['pair_ms']:.4f} ms, other kernels {prof['other_ms']:.4f} ms in "
-                      f"{prof['kernels_per_step']:.0f} kernels; wall {prof['wall_ms']:.4f} ms "
+                      f"{prof['pair_ms']:.4f} ms, other kernels and memsets "
+                      f"{prof['other_ms']:.4f} ms, {prof['kernels_per_step']:.0f} kernels and "
+                      f"memsets in all; wall {prof['wall_ms']:.4f} ms "
                       "with the profiler's overhead", flush=True)
     return res
 
@@ -1228,18 +1362,20 @@ def masked_fleet(what, fleet, touch, c, params, ops, tile, nbr):
         ms_lists = per_pass_ms(k["compact_fn"], 10)
         ms_read = per_pass_ms(lambda: int(k["compact_fn"]()[1]), 10) - ms_lists
         ms_sorted = per_pass_ms(lambda: pair_pass(sorted_name, zsorted, zsorted, c, True, True), 10)
+        d_ms = device_ms(lambda: kernel(t, t, lists, compact, c, valid))
         sections = range(1 + (name == "K6"))
-        # The bound counts the pairs of real drones in the live sub-slices;
-        # the kernel also evaluates their padding slots.
+        # The gates are tested on the pairs of real drones in the live
+        # sub-slices (the kernel also evaluates their padding slots), the
+        # rest of the terms on those the gates and the masks let through.
         pairs = [live_pairs(words, dense, sec, valid) for sec in sections]
         slot_pairs = [live_pairs(words, dense, sec) for sec in sections]
-        flops = pairs[0] * ops["K2"] + (pairs[1] * ops["K4"] if name == "K6" else 0.0)
+        live = _pairs.slice_gates(words, dense, slots, slots)
+        need = needed_pairs(t, c, lambda r0, r1: [_pairs.pair_gate(x, dense, r0, r1)
+                                                  for x in live], real)
         nbytes = (2 * rows + n_out) * slots * 4 + lists.numel() * 4
-        bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
-        bound_by = ("operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES_PER_S
-                    else "bytes")
-        res[name] = dict(ms=ms_compact, plain_ms=ms_plain, bound_ms=bound_ms, bound_by=bound_by,
-                         max_abs_err=max(err, err_touch))
+        bound_ms, bound_by, ceilings = op_bound(sorted_name, ops, pairs + [0.0], need, nbytes)
+        res[name] = dict(ms=ms_compact, device_ms=d_ms, plain_ms=ms_plain, bound_ms=bound_ms,
+                         bound_by=bound_by, max_abs_err=max(err, err_touch))
         shares = [live_share(words, dense, sec) for sec in sections]
         short = lambda xs: [float(f"{x:.4g}") for x in xs]
         held = _pairs.masked_blocks_per_sm(name == "K6", split)
@@ -1248,13 +1384,15 @@ def masked_fleet(what, fleet, touch, c, params, ops, tile, nbr):
               f"kernel against plain on the real slots, dense and compacted (bit-equal, padding "
               f"rows 0): max |kernel - plain| {err:.3g}, no contact fired; {note}; with drones "
               f"in touch {err_touch:.3g}; {note_touch}", flush=True)
+        device = ("not measured" if d_ms is None else
+                  f"{d_ms:.5f} ms (time/bound {d_ms / bound_ms:.2f})")
         print(f"[8b] {label}: compacted (cap {nbr}, longest list {k['count_max']}) "
-              f"{ms_compact:.5f} ms per pass, dense masked {ms_dense:.5f} ms; bound "
-              f"{bound_ms:.5f} ms by {bound_by}, time/bound {ms_compact / bound_ms:.2f} (live "
+              f"{ms_compact:.5f} ms per pass (events), device {device} (torch.profiler), dense "
+              f"masked {ms_dense:.5f} ms; bound {bound_ms:.5f} ms by {bound_by}, ceilings "
+              f"{json.dumps({x: float(f'{v:.4g}') for x, v in ceilings.items()})} ms (live "
               f"sub-slice share {short(shares)}; pairs of real drones in them {short(pairs)}, "
               f"slot pairs of the live sub-slices {short(slot_pairs)}, of {slots * slots:.4g}; "
-              f"{flops:.4g} ops / {PEAK_FP32_FLOPS:.3g}; {nbytes} bytes / "
-              f"{PEAK_BYTES_PER_S:.3g} = {nbytes / PEAK_BYTES_PER_S * 1e3:.3g} ms); "
+              f"of those the gates let through {list(need)} wake / contact; {nbytes} bytes); "
               f"{sorted_name} z-sorted on the {n} real drones {ms_sorted:.5f} ms; plain "
               f"{ms_plain:.3f} ms (one run); library_ms null (no PyTorch call computes this "
               "function)", flush=True)
@@ -1348,8 +1486,9 @@ def phase8b_times(dev, c, params, ops):
                 print(f"[8b]   under torch.profiler, per control step: card busy "
                       f"{prof['busy_ms']:.4f} ms, idle share {1 - prof['busy_ms'] / ms:.4f} "
                       f"(1 - busy / {ms:.4f} ms event time), pair kernels "
-                      f"{prof['pair_ms']:.4f} ms, other kernels {prof['other_ms']:.4f} ms in "
-                      f"{prof['kernels_per_step']:.0f} kernels; wall {prof['wall_ms']:.4f} ms "
+                      f"{prof['pair_ms']:.4f} ms, other kernels and memsets "
+                      f"{prof['other_ms']:.4f} ms, {prof['kernels_per_step']:.0f} kernels and "
+                      f"memsets in all; wall {prof['wall_ms']:.4f} ms "
                       "with the profiler's overhead", flush=True)
     # The times of the larger binned fleet; the error over all fleets.
     return {name: res[("binned", BINNED_FLEETS[-1][0])][name]
@@ -1370,7 +1509,7 @@ def main():
 
     # ---------------- 2. build ----------------
     t0 = time.perf_counter()
-    sources = (KERNEL, _pairs.KERNEL, _pairs.MASKED_KERNEL)
+    sources = (KERNEL, _pairs.WAKE_KERNEL, _pairs.KERNEL, _pairs.MASKED_KERNEL)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
         list(pool.map(_build.build, sources))
     print(f"[2] built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1378,6 +1517,10 @@ def main():
         for line in _build.ptxas_report(lib).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[2]   {lib}: {line.strip()}", flush=True)
+    for name, contact in (("K2", False), ("K5", True)):
+        held = _pairs.wake_blocks_per_sm(contact)
+        print(f"[2]   {name} units of 128 threads resident per SM: {held} ({4 * held} warps)",
+              flush=True)
     for name, contact in (("K3", False), ("K6", True)):
         held = {s: _pairs.masked_blocks_per_sm(contact, s) for s in _pairs.MASKED_SPLITS}
         print(f"[2]   {name} blocks (warps) resident per SM by source ranks S: "
@@ -1488,6 +1631,7 @@ def main():
     torch.cuda.synchronize()
     k_times = event_ms(lambda: velocity_rollout_cuda(*args, T_TIME, soa0, action), REPEATS)
     k_ms = statistics.median(k_times)
+    k_dev = device_ms(lambda: velocity_rollout_cuda(*args, T_TIME, soa0, action), 3)
     velocity_rollout_plain(*args, 2, soa0, action)  # warm-up
     torch.cuda.synchronize()
     p_ms = event_ms(lambda: velocity_rollout_plain(*args, T_PLAIN, soa0, action), 1)[0]
@@ -1497,7 +1641,9 @@ def main():
     bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
     bound_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes"
     print(f"[5] K1 E={E} T={T_TIME}: ms per repeat {[round(t, 4) for t in k_times]}, "
-          f"median {k_ms:.4f} ms, {E * T_TIME / (k_ms / 1e3):.6g} env-steps/s", flush=True)
+          f"median {k_ms:.4f} ms, {E * T_TIME / (k_ms / 1e3):.6g} env-steps/s; device "
+          f"{'not measured' if k_dev is None else f'{k_dev:.4f} ms'} (torch.profiler, the "
+          "wrapper's kernels and memsets)", flush=True)
     print(f"[5] plain version, same E, T={T_PLAIN} (a tenth of the kernel's depth), one run: "
           f"{p_ms:.1f} ms ({E * T_PLAIN / (p_ms / 1e3):.6g} env-steps/s)", flush=True)
     print(f"[5] bound: {per_env} ops per env for T={T_TIME} (ops per piece: "
@@ -1529,7 +1675,8 @@ def main():
         "source": "gym_pybullet_drones_tpu_torch/csrc/velocity_rollout.cu",
         "replaces": "gym_pybullet_drones_tpu/ops/velocity_pallas.py:74",
         "launches": launches[KERNEL], "max_abs_err": max_abs_err,
-        "ms": k_ms, "plain_ms": p_ms, "plain_steps": T_PLAIN, "bound_ms": bound_ms,
+        "ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms, "plain_steps": T_PLAIN,
+        "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
     }]
     for pid in PAIRS:
@@ -1537,7 +1684,7 @@ def main():
             fail(f"the swarm's main path never launched {pid}")
         kernels.append({
             "name": f"{pid} {PAIRS[pid][2].__name__.removesuffix('_cuda')}_pairs",
-            "route": "cuda", "source": "gym_pybullet_drones_tpu_torch/csrc/pair_kernels.cu",
+            "route": "cuda", "source": PAIRS[pid][5],
             "replaces": PAIRS[pid][4], "launches": pair_main[pid],
             "max_abs_err": pair_errs[pid], **pair_times[(pid, SWARM_N[0], False)],
             "library_ms": None,
@@ -1557,6 +1704,9 @@ def main():
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
             fail(f"non-finite measurement for {k['name']}")
+        if k["device_ms"] is None:
+            print(f"[9] {k['name']}: device_ms null, no torch.profiler trace held its kernels "
+                  "(not measured)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -13,8 +13,8 @@
 // Launchers: downwash_masked (K3), interact_masked (K6). Both take separate
 // target and source columns and counts (the rectangular form); the square
 // form passes the same pointer twice. The pair arithmetic is wake_term and
-// contact_term of pair_terms.cuh, shared with K2, K4 and K5; this source alone
-// is built with FMA contraction on (ops/_build.py).
+// contact_term of pair_terms.cuh, shared with K2, K4 and K5; this source is
+// built with FMA contraction on (ops/_build.py).
 //
 // The words (ops/spatial.py). The fleet is cut into tiles of `bt` targets
 // and `bs` sources, and a source tile into `sub_n` <= 8 sub-slices of
@@ -40,9 +40,9 @@
 // operations per wake pair and 71 per fused pair (counted on the plain pair
 // terms by chip_smoke.py) over the pairs of real drones in the live
 // sub-slices: thousands of operations per byte. The passes are bound by
-// operations, and on the card by the issue rate of the schedulers: about 40
-// instructions a wake pair (one reciprocal, an exp2f, the selects of the
-// pair term, a shared load).
+// operations, and on the card by the issue rate of the schedulers: a wake
+// pair is one reciprocal, one exponent, the selects of the pair term and a
+// shared load.
 //
 // Design. A block holds 32 consecutive targets of one target tile (a tile of
 // bt targets is cut into ceil(bt / 32) blocks) and S warps, the source ranks:
@@ -76,7 +76,6 @@
 
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
-#include <string.h>
 
 #include "pair_terms.cuh"
 
@@ -234,7 +233,7 @@ __device__ __forceinline__ void next_run(unsigned& bits, int& first, int& n) {
 template <bool kContact, int S>
 __device__ __forceinline__ void evaluate(const float4* __restrict__ pos, const Geo& g,
                                          const Stage& s, int rank, const float* tv,
-                                         const PairConsts& c, float& wake, float* acc) {
+                                         const WakeConsts& w, float& wake, float* acc) {
   constexpr int C = kPerRank * S;
   const int len = stage_len(g, s);
   unsigned runs = kContact ? slot_bits(s, 0) : (1u << __popc(s.mask)) - 1u;
@@ -244,7 +243,7 @@ __device__ __forceinline__ void evaluate(const float4* __restrict__ pos, const G
 #pragma unroll 4
     for (int x = first * len + rank; x < (first + n) * len; x += S) {
       const float4 p = pos[x];
-      wake -= wake_term(p.x - tv[0], p.y - tv[1], p.z - tv[2], c);
+      wake -= wake_term(p.x - tv[0], p.y - tv[1], p.z - tv[2], w);
     }
   }
   if constexpr (kContact) {
@@ -256,7 +255,7 @@ __device__ __forceinline__ void evaluate(const float4* __restrict__ pos, const G
       for (int x = first * len + rank; x < (first + n) * len; x += S) {
         const float4 p = pos[x], v = pos[C + x];
         contact_term(tv[0] - p.x, tv[1] - p.y, tv[2] - p.z, tv[3] - v.x, tv[4] - v.y,
-                     tv[5] - v.z, c, acc);
+                     tv[5] - v.z, w.c, acc);
       }
     }
   }
@@ -267,7 +266,7 @@ template <bool kContact, int S>
 __global__ void __launch_bounds__(kWarp * S)
 masked_pair_kernel(const float* __restrict__ tgt, int nt, const float* __restrict__ src, int ns,
                    const int* __restrict__ words, int row_len, int compact, int bt, int groups,
-                   Geo g, const unsigned char* __restrict__ valid, PairConsts c,
+                   Geo g, const unsigned char* __restrict__ valid, WakeConsts w,
                    float* __restrict__ out) {
   constexpr int kRows = kContact ? 6 : 3;
   constexpr int kOut = kContact ? 7 : 1;
@@ -310,7 +309,7 @@ masked_pair_kernel(const float* __restrict__ tgt, int nt, const float* __restric
     __pipeline_commit();
     __pipeline_wait_prior(1);  // this thread's copies of the current stage landed
     __syncthreads();           // and every other thread's
-    evaluate<kContact, S>(stages[b], g, cur, rank, tv, c, wake, acc);
+    evaluate<kContact, S>(stages[b], g, cur, rank, tv, w, wake, acc);
     __syncthreads();  // every rank is done with the buffer the next copies fill
     cur = nxt;
     have = more;
@@ -351,10 +350,10 @@ masked_pair_kernel(const float* __restrict__ tgt, int nt, const float* __restric
 template <bool kContact, int S>
 cudaError_t run(unsigned int blocks, cudaStream_t stream, const float* tgt, int nt,
                 const float* src, int ns, const int* words, int row_len, int compact, int bt,
-                int groups, const Geo& g, const unsigned char* valid, const PairConsts& c,
+                int groups, const Geo& g, const unsigned char* valid, const WakeConsts& w,
                 float* out) {
   masked_pair_kernel<kContact, S><<<blocks, kWarp * S, 0, stream>>>(
-      tgt, nt, src, ns, words, row_len, compact, bt, groups, g, valid, c, out);
+      tgt, nt, src, ns, words, row_len, compact, bt, groups, g, valid, w, out);
   return cudaGetLastError();
 }
 
@@ -383,8 +382,8 @@ int launch(const void* tgt, int nt, const void* src, int ns, const void* words, 
   if (!compact && row_len != ns / bs) return (int)cudaErrorInvalidValue;
   if (compact && ns / bs > 32768) return (int)cudaErrorInvalidValue;
   if (nt == 0) return (int)cudaSuccess;
-  PairConsts c;
-  memcpy(&c, consts, sizeof(PairConsts));
+  WakeConsts wc;
+  if (!wake_consts(consts, &wc)) return (int)cudaErrorInvalidValue;
   Geo g;
   g.bs = bs;
   g.sub_n = sub_n;
@@ -404,10 +403,10 @@ int launch(const void* tgt, int nt, const void* src, int ns, const void* words, 
   const auto st = (cudaStream_t)stream;
   const auto n = (unsigned int)blocks;
   switch (split) {
-    case 1: return (int)run<kContact, 1>(n, st, t, nt, s, ns, w, row_len, compact, bt, groups, g, v, c, o);
-    case 2: return (int)run<kContact, 2>(n, st, t, nt, s, ns, w, row_len, compact, bt, groups, g, v, c, o);
-    case 4: return (int)run<kContact, 4>(n, st, t, nt, s, ns, w, row_len, compact, bt, groups, g, v, c, o);
-    default: return (int)run<kContact, 8>(n, st, t, nt, s, ns, w, row_len, compact, bt, groups, g, v, c, o);
+    case 1: return (int)run<kContact, 1>(n, st, t, nt, s, ns, w, row_len, compact, bt, groups, g, v, wc, o);
+    case 2: return (int)run<kContact, 2>(n, st, t, nt, s, ns, w, row_len, compact, bt, groups, g, v, wc, o);
+    case 4: return (int)run<kContact, 4>(n, st, t, nt, s, ns, w, row_len, compact, bt, groups, g, v, wc, o);
+    default: return (int)run<kContact, 8>(n, st, t, nt, s, ns, w, row_len, compact, bt, groups, g, v, wc, o);
   }
 }
 

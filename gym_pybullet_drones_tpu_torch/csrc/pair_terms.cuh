@@ -1,25 +1,31 @@
 // The pair terms of every pair kernel: the constants, the wake of one source
 // on one target and the contact of one partner on one target. Included by
-// pair_kernels.cu (K2, K4, K5) and masked_pair_kernels.cu (K3, K6), so that
-// all five passes share one arithmetic by construction.
+// wake_pair_kernels.cu (K2, K5: wake_mag, wake_live, touching, contact_add),
+// masked_pair_kernels.cu (K3, K6: wake_term, contact_term) and
+// pair_kernels.cu (K4: contact_term), so that the five passes share one
+// arithmetic by construction; the sources differ only in their flags.
 //
-// Math. One reciprocal a wake pair (the hardware's, refined by a Newton
-// step), exp2f, rsqrtf (the TPU kernels use lax.rsqrt), fmaxf/fminf, float
-// literals only; no --use_fast_math. pair_kernels.cu is built with
-// -fmad=false, masked_pair_kernels.cu with FMA contraction on
-// (ops/_build.py). The plain versions divide twice and call exp; the passes
-// are held to them at the pair tolerances. The wake term jumps where float32
-// beta is exactly 0 (dz = 0.6875 m for the CF2X: beta^2 is then taken as 1)
-// and at the 10 m cutoff, so its beta and dxy^2 are rounded step by step as
-// in the plain version (__fmul_rn and __fadd_rn are never contracted): every
-// pass puts the same pairs on the same side of both. The host forms K,
-// min_dist, min_dist^2 and eps^2 in double, as the JAX package's Python
-// floats are, and rounds each once to float.
+// Math. A wake pair takes one reciprocal and one exponent, rcp.approx.ftz
+// (1 ulp, no Newton step) and ex2.approx.ftz (2 ulp; its argument carries
+// log2 K, so the factor K costs nothing and terms under 2^-126 flush to 0);
+// a contact pair takes rsqrtf (the TPU kernels use lax.rsqrt). fmaxf/fminf,
+// float literals only; no --use_fast_math. pair_kernels.cu is built with
+// -fmad=false (K4 equals its plain version bit for bit), the other two with
+// FMA contraction on (ops/_build.py). The plain versions divide twice and
+// call exp; the passes are held to them at the pair tolerances. The wake
+// term jumps where float32 beta is exactly 0 (dz = 0.6875 m for the CF2X:
+// beta^2 is then taken as 1) and at the 10 m cutoff, and the contact term at
+// the contact radius, so beta, dxy^2 and d^2 are rounded step by step as in
+// the plain versions (__fmul_rn and __fadd_rn are never contracted): every
+// pass puts the same pairs on the same side of all three. The host forms K,
+// log2 K, min_dist, min_dist^2 and eps^2 in double, as the JAX package's
+// Python floats are, and rounds each once to float.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <string.h>
 
 namespace pair_terms {
 
@@ -35,52 +41,101 @@ struct PairConsts {
 constexpr int kNumConsts = sizeof(PairConsts) / sizeof(float);
 static_assert(kNumConsts == 7, "PairConsts layout changed: update the host packing");
 
-// 1 / x for x in [1e-37, 1e37]: the hardware's reciprocal and one Newton
-// step, within an ulp and with no branch (the correctly rounded __frcp_rn
-// branches to a slow path near the ends of the range, which keeps the
-// compiler from overlapping the pairs of an unrolled loop).
-__device__ __forceinline__ float recip(float x) {
+// The pair constants, and log2(K) formed in double on the host: the wake's
+// exponent adds it, so that 2^(...) carries the factor K.
+struct WakeConsts {
+  PairConsts c;
+  float log2K;
+};
+
+// The launchers' constants from the host's packed floats; false unless K > 0.
+inline bool wake_consts(const void* packed, WakeConsts* w) {
+  memcpy(&w->c, packed, sizeof(PairConsts));
+  w->log2K = (float)log2((double)w->c.K);
+  return w->c.K > 0.0f;
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
   float r;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return __fmaf_rn(r, __fmaf_rn(-x, r, 1.0f), r);
+  return r;
 }
 
-// The wake magnitude of a source at (dx, dy, dz) from the target (source
-// minus target); the pass subtracts it. K / dz^2 * exp(-dxy^2 / (2 beta^2))
-// from one reciprocal r = 1 / (dz^2 beta^2): K beta^2 r * 2^(-log2(e) / 2 *
-// dxy^2 dz^2 r).
-__device__ __forceinline__ float wake_term(float dx, float dy, float dz, const PairConsts& c) {
+__device__ __forceinline__ float ex2_approx(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// dx^2 + dy^2, rounded as the plain version rounds it.
+__device__ __forceinline__ float sq2(float dx, float dy) {
+  return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+}
+
+// The wake magnitude of a source dz above the target (the pass subtracts it
+// where wake_live holds), dxy2 = dx^2 + dy^2 and dz2 = dz^2 rounded as in the
+// plain version: K / dz^2 * exp(-dxy^2 / (2 beta^2)) from one reciprocal
+// r = 1 / (dz^2 beta^2) as beta^2 r * 2^(-log2(e) / 2 * dxy^2 dz^2 r + log2 K).
+// beta^2 = 1 where float32 beta is 0, as in the plain version. Finite for
+// 0 < dz < 1e18 m; elsewhere (dz <= 0) it may be inf or NaN, and is masked.
+__device__ __forceinline__ float wake_mag(float dxy2, float dz, float dz2, const WakeConsts& w) {
   constexpr float kNegHalfLog2e = -0.72134752044448170f;  // -log2(e) / 2
-  const float dxy2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-  const float safe_dz = dz > 0.0f ? dz : 1.0f;
-  const float beta = __fadd_rn(__fmul_rn(c.c2, safe_dz), c.c3);
-  const float safe_beta2 = fabsf(beta) > 1e-12f ? beta * beta : 1.0f;
-  const float dz2 = safe_dz * safe_dz;
-  const float r = recip(fminf(dz2 * safe_beta2, 1e37f));
-  const float mag = (c.K * safe_beta2) * r * exp2f(kNegHalfLog2e * dxy2 * dz2 * r);
-  return (dz > 0.0f && dxy2 < 100.0f) ? mag : 0.0f;
+  const float beta = __fadd_rn(__fmul_rn(w.c.c2, dz), w.c.c3);
+  const float beta2 = fabsf(beta) > 1e-12f ? beta * beta : 1.0f;
+  const float r = rcp_approx(dz2 * beta2);
+  const float e = ex2_approx(fmaf(kNegHalfLog2e * dxy2, dz2 * r, w.log2K));
+  return (beta2 * r) * e;
 }
 
-// Contact of a partner at (dx, dy, dz) = target minus partner, with relative
-// velocity (rvx, rvy, rvz) = target minus partner: adds the pushout to
-// acc[0..2] and the velocity correction to acc[3..5].
-__device__ __forceinline__ void contact_term(float dx, float dy, float dz, float rvx, float rvy,
-                                             float rvz, const PairConsts& c, float* acc) {
-  const float d2 = dx * dx + dy * dy + dz * dz;
-  const bool contact = d2 < c.min_dist2 && d2 > c.eps2;
+// The pairs whose wake term is not 0: the source above the target, within
+// the 10 m cutoff. Bitwise, so that no branch is formed.
+__device__ __forceinline__ bool wake_live(float dxy2, float dz) {
+  return (dz > 0.0f) & (dxy2 < 100.0f);
+}
+
+// The wake term of a source at (dx, dy, dz) from the target (source minus
+// target): wake_mag where wake_live holds, else 0.
+__device__ __forceinline__ float wake_term(float dx, float dy, float dz, const WakeConsts& w) {
+  const float dxy2 = sq2(dx, dy);
+  const float mag = wake_mag(dxy2, dz, __fmul_rn(dz, dz), w);
+  return wake_live(dxy2, dz) ? mag : 0.0f;
+}
+
+// eps^2 < d2 < min_dist^2, bitwise.
+__device__ __forceinline__ bool touching(float d2, const PairConsts& c) {
+  return (d2 < c.min_dist2) & (d2 > c.eps2);
+}
+
+// Contact of a partner at (dx, dy, dz) = target minus partner with d2 its
+// squared distance, relative velocity (rvx, rvy, rvz) = target minus partner
+// and `touch` = touching(d2): adds the pushout to acc[0], acc[s], acc[2 s]
+// and the velocity correction to acc[3 s .. 5 s], s = kStride. Where `touch`
+// is false both are exactly zero (overlap 0, so push 0; appr 0).
+template <int kStride>
+__device__ __forceinline__ void contact_add(float d2, bool touch, float dx, float dy, float dz,
+                                            float rvx, float rvy, float rvz, const PairConsts& c,
+                                            float* acc) {
   const float inv = rsqrtf(fmaxf(d2, c.eps2));
   const float dist = d2 * inv;
-  const float overlap = contact ? c.min_dist - dist : 0.0f;
+  const float overlap = touch ? c.min_dist - dist : 0.0f;
   const float nx = dx * inv, ny = dy * inv, nz = dz * inv;
   const float push = fminf(0.5f * overlap, c.max_push);
   acc[0] += push * nx;
-  acc[1] += push * ny;
-  acc[2] += push * nz;
+  acc[1 * kStride] += push * ny;
+  acc[2 * kStride] += push * nz;
   const float vn = rvx * nx + rvy * ny + rvz * nz;
-  const float appr = (contact && vn < 0.0f) ? vn : 0.0f;
-  acc[3] += -0.5f * appr * nx;
-  acc[4] += -0.5f * appr * ny;
-  acc[5] += -0.5f * appr * nz;
+  const float appr = (touch && vn < 0.0f) ? vn : 0.0f;
+  acc[3 * kStride] += -0.5f * appr * nx;
+  acc[4 * kStride] += -0.5f * appr * ny;
+  acc[5 * kStride] += -0.5f * appr * nz;
+}
+
+// The contact term of a partner at (dx, dy, dz) = target minus partner into
+// acc[0..5], d2 rounded as the plain version rounds it.
+__device__ __forceinline__ void contact_term(float dx, float dy, float dz, float rvx, float rvy,
+                                             float rvz, const PairConsts& c, float* acc) {
+  const float d2 = __fadd_rn(sq2(dx, dy), __fmul_rn(dz, dz));
+  contact_add<1>(d2, touching(d2, c), dx, dy, dz, rvx, rvy, rvz, c, acc);
 }
 
 }  // namespace pair_terms

@@ -4,9 +4,9 @@ launches and the chunked plain evaluation.
 The three wrapper modules (``ops/downwash_pairs.py``, ``ops/collide_pairs.py``,
 ``ops/interact_pairs.py``) each hold one pass's pair arithmetic in plain
 PyTorch and its kernels' wrappers; the kernels themselves are
-``csrc/pair_kernels.cu`` (K2, K4, K5) and ``csrc/masked_pair_kernels.cu`` (the
-mask-gated K3 and K6), which share their pair terms through
-``csrc/pair_terms.cuh``.
+``csrc/wake_pair_kernels.cu`` (K2, K5), ``csrc/pair_kernels.cu`` (K4) and
+``csrc/masked_pair_kernels.cu`` (the mask-gated K3 and K6), which share their
+pair constants and terms through ``csrc/pair_terms.cuh``.
 
 Layout at the kernel boundary: the target columns stacked into one contiguous
 (rows, Nt) float32 tensor (x, y, z and, for contact, vx, vy, vz), the source
@@ -18,17 +18,22 @@ import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from gym_pybullet_drones_tpu_torch.ops import _build
 
 KERNEL = "pair_kernels"
+WAKE_KERNEL = "wake_pair_kernels"
 MASKED_KERNEL = "masked_pair_kernels"
-BLOCK = 256  # targets per block and sources per tile (csrc/pair_kernels.cu kBlock)
-# Blocks wanted in flight for each SM of the card: a few waves. The source
+BLOCK = 256  # targets per block and sources per tile (csrc/{wake_,}pair_kernels.cu)
+# K4's grid: blocks wanted in flight, four for each SM of an H100 (a constant,
+# not the card's count, so that the bits never depend on the card). The source
 # split S is chosen so that target blocks x S reaches it where the tiles allow.
-_BLOCKS_PER_SM = 4
-_H100_SMS = 132  # what a caller without a card at hand reckons with
+_K4_BLOCKS = 4 * 132
+# K2 and K5: units a target block is cut into at most (one bit each of the
+# kernel's 32-bit mask word).
+UNIT_SLOTS = 32
 # Fleet size above which the passes sort by z and cull tiles (the JAX
 # package's measured crossover, ops/downwash_pallas.py Z_SORT_MIN_N).
 Z_SORT_MIN_N = 8192
@@ -67,21 +72,46 @@ def use_z_sort(z_sort, nt: int, ns: int) -> bool:
     return max(nt, ns) >= Z_SORT_MIN_N if z_sort is None else bool(z_sort)
 
 
-@functools.cache
-def sm_count(device: torch.device) -> int:
-    """The SMs of the CUDA card ``device``."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def source_split(nt: int, ns: int, sms: int = _H100_SMS):
-    """``(S, tiles_per_chunk)``: the source tiles split into S chunks of whole
-    tiles, none empty, so that the target blocks times S fill a card of
-    ``sms`` SMs."""
+def source_split(nt: int, ns: int):
+    """K4's ``(S, tiles_per_chunk)``: the source tiles split into S chunks of
+    whole tiles, none empty, so that the target blocks times S reach
+    ``_K4_BLOCKS`` where the tiles allow. The shapes alone fix it."""
     n_tiles = max(1, math.ceil(ns / BLOCK))
     blocks = max(1, math.ceil(nt / BLOCK))
-    want = max(1, min(n_tiles, math.ceil(_BLOCKS_PER_SM * sms / blocks)))
+    want = max(1, min(n_tiles, math.ceil(_K4_BLOCKS / blocks)))
     per = n_tiles // want
     return math.ceil(n_tiles / per), per
+
+
+def pair_units(nt: int, ns: int, triangle: bool = False):
+    """K2's and K5's work units: ``(units, per_unit)``, ``units`` an
+    (n_units, 4) int32 array of (target block, first source tile, slot, units
+    of the block) and ``per_unit`` the source tiles a unit spans at most.
+
+    A block's tiles are cut into runs of ``per_unit`` = ceil(tiles /
+    ``UNIT_SLOTS``) tiles, so a block has at most ``UNIT_SLOTS`` units; slot k
+    is the block's k-th unit in tile order, and the kernel adds the units'
+    partial sums in slot order. ``triangle`` (the square wake cull on a fleet
+    sorted by z) lists only the tiles from the first one holding a source
+    index above the block's first target, where every listed tile is live. A
+    block with no tile still gets one empty unit, which writes its zeros. The
+    shapes alone fix the list, and with it the order of the float32 sums."""
+    n_tiles = math.ceil(ns / BLOCK)
+    blocks = math.ceil(nt / BLOCK)
+    per = max(1, math.ceil(n_tiles / UNIT_SLOTS))
+    block = np.arange(blocks, dtype=np.int64)
+    first = np.zeros(blocks, dtype=np.int64)
+    if triangle:
+        # Tile b's last source index, min(256 b + 255, ns - 1), exceeds the
+        # block's first target 256 b unless tile b holds a single source.
+        first = np.where(ns - 1 > BLOCK * block, block, block + 1)
+        first = np.minimum(first, n_tiles)
+    count = np.maximum(1, -(-(n_tiles - first) // per))
+    start = np.cumsum(count) - count
+    slot = np.arange(int(count.sum()), dtype=np.int64) - np.repeat(start, count)
+    units = np.stack([np.repeat(block, count), np.repeat(first, count) + slot * per, slot,
+                      np.repeat(count, count)], axis=1)
+    return units.astype(np.int32), per
 
 
 def check_device(built: torch.device, got: torch.device, what: str):
@@ -299,43 +329,113 @@ def launch_masked(name: str, tgt: torch.Tensor, src: torch.Tensor, words: torch.
 
 @functools.cache
 def library():
-    """The three C entry points of ``csrc/pair_kernels.cu``, built at first
-    use and typed once."""
-    lib = ctypes.CDLL(_build.build(KERNEL))
+    """K4's C entry point in ``csrc/pair_kernels.cu``, built at first use and
+    typed once."""
+    fn = ctypes.CDLL(_build.build(KERNEL)).collide_pairs
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def wake_library():
+    """The C entry points of ``csrc/wake_pair_kernels.cu`` (K2, K5 and the
+    occupancy query), built at first use and typed once."""
+    lib = ctypes.CDLL(_build.build(WAKE_KERNEL))
     fns = {}
-    for name in ("downwash_pairs", "collide_pairs", "interact_pairs"):
+    for name in ("downwash_pairs", "interact_pairs"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
+    fn = lib.wake_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fns["wake_blocks_per_sm"] = fn
     return fns
 
 
-def launch(name: str, tgt: torch.Tensor, src: torch.Tensor, c: PairConsts, n_out: int,
-           cull: bool, square: bool, tiles=None) -> torch.Tensor:
-    """Run the kernel ``name`` on stacked float32 CUDA columns and return its
-    (n_out, Nt) output. ``tiles``, an int32 CUDA tensor of 2, receives the
-    (block, tile) pairs each section evaluated. Raises on anything the kernel
-    does not take and on a failed launch."""
-    check_columns(name, tgt, src)
-    nt, ns = tgt.shape[1], src.shape[1]
-    if tiles is not None and (tiles.device != tgt.device or tiles.dtype != torch.int32
+def wake_blocks_per_sm(contact: bool) -> int:
+    """Units of K2 (``contact`` False) or K5 that one SM of the current card
+    holds at once."""
+    blocks = ctypes.c_int(0)
+    rc = wake_library()["wake_blocks_per_sm"](int(contact), ctypes.addressof(blocks))
+    if rc != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed: cudaError {rc}")
+    return blocks.value
+
+
+def _check_tiles(name: str, tiles, device: torch.device):
+    if tiles is not None and (tiles.device != device or tiles.dtype != torch.int32
                               or tiles.numel() != 2):
-        raise ValueError(f"{name}'s tile counter is an int32 tensor of 2 on {tgt.device}")
-    split, per = source_split(nt, ns, sm_count(tgt.device))
-    out = torch.empty((n_out, nt), dtype=torch.float32, device=tgt.device)
-    partial = (torch.empty((split, n_out, nt), dtype=torch.float32, device=tgt.device)
+        raise ValueError(f"{name}'s tile counter is an int32 tensor of 2 on {device}")
+
+
+def launch(name: str, tgt: torch.Tensor, src: torch.Tensor, c: PairConsts, cull: bool,
+           tiles=None) -> torch.Tensor:
+    """Run K4 (``name``, ``csrc/pair_kernels.cu``) on stacked float32 CUDA
+    columns and return its (6, Nt) output. ``tiles``, an int32 CUDA tensor of
+    2, receives in ``tiles[1]`` the (block, tile) pairs evaluated. Raises on
+    anything the kernel does not take and on a failed launch."""
+    check_columns(name, tgt, src)
+    _check_tiles(name, tiles, tgt.device)
+    nt, ns = tgt.shape[1], src.shape[1]
+    split, per = source_split(nt, ns)
+    out = torch.empty((6, nt), dtype=torch.float32, device=tgt.device)
+    partial = (torch.empty((split, 6, nt), dtype=torch.float32, device=tgt.device)
                if split > 1 else out)
     host = (ctypes.c_float * len(c))(*c)
-    fn = library()[name]
+    with torch.cuda.device(tgt.device):
+        stream = torch.cuda.current_stream(tgt.device).cuda_stream
+        rc = library()(tgt.data_ptr(), nt, src.data_ptr(), ns, int(cull), ctypes.addressof(host),
+                       len(host), split, per, partial.data_ptr(), out.data_ptr(),
+                       None if tiles is None else tiles.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    return out
+
+
+@functools.cache
+def unit_table(nt: int, ns: int, triangle: bool, device: torch.device):
+    """``pair_units`` on ``device``: ``(units tensor, n_units, per_unit,
+    scratch rows)``, copied there once per shape."""
+    units, per = pair_units(nt, ns, triangle)
+    return torch.as_tensor(units, device=device), len(units), per, int(units[:, 3].max())
+
+
+def launch_units(name: str, tgt: torch.Tensor, src: torch.Tensor, c: PairConsts, n_out: int,
+                 cull: bool, square: bool, tiles=None) -> torch.Tensor:
+    """Run K2 or K5 (``name``, ``csrc/wake_pair_kernels.cu``) on stacked
+    float32 CUDA columns and return its (n_out, Nt) output, over the work
+    units of ``pair_units`` (the live ones alone where K2's square wake cull
+    holds). ``tiles``, an int32 CUDA tensor of 2, receives the (block, tile)
+    pairs each section evaluated. Raises on anything the kernel does not take
+    and on a failed launch."""
+    check_columns(name, tgt, src)
+    _check_tiles(name, tiles, tgt.device)
+    nt, ns = tgt.shape[1], src.shape[1]
+    out = torch.empty((n_out, nt), dtype=torch.float32, device=tgt.device)
+    if nt == 0:
+        return out
+    # The triangle's units alone where K2 (one output) culls the square form.
+    units, n_units, per, rows = unit_table(nt, ns, cull and square and n_out == 1, tgt.device)
+    scratch = torch.empty((rows, n_out, nt), dtype=torch.float32, device=tgt.device)
+    # The units' counts, one word per target block, zeroed by the launcher.
+    sync = torch.empty(math.ceil(nt / BLOCK), dtype=torch.int64, device=tgt.device)
+    host = (ctypes.c_float * len(c))(*c)
+    fn = wake_library()[name]
     with torch.cuda.device(tgt.device):
         stream = torch.cuda.current_stream(tgt.device).cuda_stream
         rc = fn(tgt.data_ptr(), nt, src.data_ptr(), ns, int(cull), int(square),
-                ctypes.addressof(host), len(host), split, per, partial.data_ptr(),
-                out.data_ptr(), None if tiles is None else tiles.data_ptr(), stream)
+                ctypes.addressof(host), len(host), units.data_ptr(), n_units, per, rows,
+                scratch.data_ptr(), sync.data_ptr(), out.data_ptr(),
+                None if tiles is None else tiles.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     return out

@@ -47,10 +47,11 @@ def collide_plain(tgt: torch.Tensor, src: torch.Tensor, c: _pairs.PairConsts) ->
 
 
 def collide_cuda(tgt: torch.Tensor, src: torch.Tensor, c: _pairs.PairConsts,
-                 cull: bool = False, square: bool = True, tiles=None) -> torch.Tensor:
+                 cull: bool = False, tiles=None) -> torch.Tensor:
     """Launch K4 on stacked float32 CUDA columns; ``cull`` takes them as
-    sorted by z. ``collide_cuda.launches`` counts the launches."""
-    out = _pairs.launch(NAME, tgt, src, c, 6, cull, square, tiles)
+    sorted by z (the contact cull reads z alone, the same in the square and
+    the rectangular form). ``collide_cuda.launches`` counts the launches."""
+    out = _pairs.launch(NAME, tgt, src, c, cull, tiles)
     collide_cuda.launches += 1
     return out
 
@@ -80,7 +81,7 @@ def make_collide(params, max_push: float = 0.01, return_delta: bool = False, z_s
             tgt, order = _pairs.sort_by_z(tgt)
             srcs = tgt if src is None else _pairs.sort_by_z(srcs)[0]
         if x.device.type == "cuda":
-            res = collide_cuda(tgt, srcs, c, cull=use_sort, square=src is None)
+            res = collide_cuda(tgt, srcs, c, cull=use_sort)
         else:
             res = collide_plain(tgt, srcs, c)
         if use_sort:

@@ -10,7 +10,7 @@ squared-distance form of ``core/aero.downwash_forces_body_z``.
 ``make_downwash`` builds ``dw(pos, src_pos=None)`` and its column entry
 ``dw.cols(x, y, z, src=None)``:
 
-* on CUDA tensors it launches K2 (``csrc/pair_kernels.cu``,
+* on CUDA tensors it launches K2 (``csrc/wake_pair_kernels.cu``,
   ``downwash_pairs``); a failed build or launch raises;
 * on CPU tensors it runs the plain version, ``downwash_plain``.
 
@@ -61,7 +61,7 @@ def downwash_cuda(tgt: torch.Tensor, src: torch.Tensor, c: _pairs.PairConsts,
                   cull: bool = False, square: bool = True, tiles=None) -> torch.Tensor:
     """Launch K2 on stacked float32 CUDA columns; ``cull`` takes them as
     sorted by z. ``downwash_cuda.launches`` counts the launches."""
-    out = _pairs.launch(NAME, tgt, src, c, 1, cull, square, tiles)
+    out = _pairs.launch_units(NAME, tgt, src, c, 1, cull, square, tiles)
     downwash_cuda.launches += 1
     return out[0]
 
@@ -77,7 +77,7 @@ def make_downwash(params, z_sort=None, device=None):
     are cast to float32 and the result back to their dtype."""
     device = resolve_device(device)
     if device.type == "cuda":
-        _pairs.library()
+        _pairs.wake_library()
     c = _pairs.pair_consts(params)
 
     def dw_cols(x, y, z, src=None):

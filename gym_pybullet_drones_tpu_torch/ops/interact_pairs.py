@@ -16,7 +16,7 @@ drones any reordering diverges from the dense path, this one included.
 
 ``make_interact`` builds ``interact(pos, vel) -> (mag, dpos, dvel)`` and
 ``interact.cols(x, y, z, vx, vy, vz)``. CUDA tensors launch K5
-(``csrc/pair_kernels.cu``, ``interact_pairs``); CPU tensors run
+(``csrc/wake_pair_kernels.cu``, ``interact_pairs``); CPU tensors run
 ``interact_plain``. ``z_sort`` culls the wake section by the sorted index
 triangle and the contact section by the z band, each on its own.
 
@@ -59,7 +59,7 @@ def interact_cuda(cols: torch.Tensor, c: _pairs.PairConsts, cull: bool = False,
                   tiles=None) -> torch.Tensor:
     """Launch K5 on stacked float32 CUDA columns; ``cull`` takes them as
     sorted by z. ``interact_cuda.launches`` counts the launches."""
-    out = _pairs.launch(NAME, cols, cols, c, 7, cull, True, tiles)
+    out = _pairs.launch_units(NAME, cols, cols, c, 7, cull, True, tiles)
     interact_cuda.launches += 1
     return out
 
@@ -74,7 +74,7 @@ def make_interact(params, max_push: float = 0.01, z_sort=None, device=None):
     built here."""
     device = resolve_device(device)
     if device.type == "cuda":
-        _pairs.library()
+        _pairs.wake_library()
     c = _pairs.pair_consts(params, max_push)
 
     def interact_cols(x, y, z, vx, vy, vz):

@@ -1,6 +1,6 @@
-"""Kernels K1 (csrc/velocity_rollout.cu), K2, K4, K5 (csrc/pair_kernels.cu) and
-K3, K6 (csrc/masked_pair_kernels.cu) against their plain PyTorch versions on
-the card. Needs a CUDA card and nvcc: run on the GPU machine with
+"""Kernels K1 (csrc/velocity_rollout.cu), K2, K5 (csrc/wake_pair_kernels.cu),
+K4 (csrc/pair_kernels.cu) and K3, K6 (csrc/masked_pair_kernels.cu) against
+their plain PyTorch versions on the card. Needs a CUDA card and nvcc: run on the GPU machine with
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -82,7 +82,7 @@ def test_k1_rejects_what_it_does_not_take(cuda):
         tro.velocity_rollout_cuda(*args, 2, soa, {k: v.cpu() for k, v in act.items()})
 
 
-# ---------------- K2, K4, K5 (csrc/pair_kernels.cu) ----------------
+# ---------------- K2, K5 (csrc/wake_pair_kernels.cu), K4 (csrc/pair_kernels.cu) ----------------
 
 
 def _pair_cloud(device, n, n_src=None, seed=11):
@@ -92,12 +92,22 @@ def _pair_cloud(device, n, n_src=None, seed=11):
     m = n if n_src is None else n_src
     scale = (m / 1024) ** (1 / 3)
     pos = rng.uniform(-1, 1, (m, 3)) * np.array([4, 4, 1.5]) * scale + [0, 0, 2.0]
-    pos[1::64] = pos[0::64] + [0.08, 0.0, 0.05]
+    pos[1::64] = pos[0::64][:len(pos[1::64])] + [0.08, 0.0, 0.05]
     vel = rng.uniform(-0.5, 0.5, (m, 3))
     src = torch.as_tensor(np.concatenate([pos, vel], 1).T.copy(), dtype=torch.float32,
                           device=device)
     tgt = src if n_src is None else (src[:, :n] + 0.01).contiguous()
     return tgt, src
+
+
+def _spread_fleet(n, seed=3):
+    """A jittered 1.5 m lattice: no two drones in touch, every drone under
+    some wake; (n, 3) positions and velocities as float32 numpy."""
+    rng = np.random.RandomState(seed)
+    side = int(np.ceil(n ** (1 / 3)))
+    g = np.stack(np.meshgrid(*[np.arange(side) * 1.5] * 3), -1).reshape(-1, 3)[:n]
+    pos = g + rng.uniform(-0.3, 0.3, g.shape) + [0.0, 0.0, 1.0]
+    return pos.astype(np.float32), rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
 
 
 def _pair_consts():
@@ -116,9 +126,11 @@ def _sorted(tgt, src, square):
 
 
 @pytest.mark.parametrize("sort", [False, True])
-@pytest.mark.parametrize("n,n_src", [(1000, None), (4096, None), (16384, None), (4096, 16384)])
+@pytest.mark.parametrize("n,n_src", [(1000, None), (4096, None), (4097, None), (16384, None),
+                                     (4096, 16384)])
 def test_k2_k4_match_plain_versions(cuda, n, n_src, sort):
-    """Square and rectangular, z-sorted (culled) and not; ragged at 1000."""
+    """Square and rectangular, z-sorted (culled) and not; ragged at 1000 and
+    4097 (a last block and a last tile of one drone)."""
     c = _pair_consts()
     tgt, src = _pair_cloud(cuda, n, n_src)
     square = n_src is None
@@ -126,7 +138,7 @@ def test_k2_k4_match_plain_versions(cuda, n, n_src, sort):
         tgt, src = _sorted(tgt, src, square)
     w = tdw.downwash_cuda(tgt[:3].contiguous(), src[:3].contiguous(), c, cull=sort, square=square)
     _wake_close(w, tdw.downwash_plain(tgt[:3].contiguous(), src[:3].contiguous(), c))
-    d = tco.collide_cuda(tgt, src, c, cull=sort, square=square)
+    d = tco.collide_cuda(tgt, src, c, cull=sort)
     want = tco.collide_plain(tgt, src, c)
     assert float(d[:3].abs().max()) > 0  # contacts fired
     torch.testing.assert_close(tgt[:3] + d[:3], tgt[:3] + want[:3], rtol=0, atol=1e-6)
@@ -134,7 +146,7 @@ def test_k2_k4_match_plain_versions(cuda, n, n_src, sort):
 
 
 @pytest.mark.parametrize("sort", [False, True])
-@pytest.mark.parametrize("n", [1000, 4096, 16384])
+@pytest.mark.parametrize("n", [1000, 4096, 4097, 16384])
 def test_k5_matches_plain_version(cuda, n, sort):
     c = _pair_consts()
     cols, _ = _pair_cloud(cuda, n)
@@ -160,6 +172,73 @@ def test_pair_culls_fire_and_count_their_tiles(cuda):
         counts[cull] = t.tolist()
     assert counts[False] == [tiles, tiles]
     assert 0 < counts[True][0] < tiles and 0 < counts[True][1] < tiles
+
+
+def test_k2_lists_only_the_live_tiles_of_the_triangle(cuda):
+    """Square and z-sorted, K2 evaluates exactly the tiles on and above each
+    block's diagonal (the units the host lists), K5's wake the same tiles."""
+    c = _pair_consts()
+    cols, _ = tpairs.sort_by_z(_pair_cloud(cuda, 16384)[0])
+    t2, t5 = (torch.zeros(2, dtype=torch.int32, device=cuda) for _ in range(2))
+    tdw.downwash_cuda(cols[:3].contiguous(), cols[:3].contiguous(), c, cull=True, tiles=t2)
+    tia.interact_cuda(cols, c, cull=True, tiles=t5)
+    assert int(t2[0]) == int(t5[0]) == 64 * 65 // 2
+
+
+@pytest.mark.parametrize("sort", [False, True])
+def test_k5_contact_of_one_lane_in_a_warp(cuda, sort):
+    """A fleet with no two drones in touch but one pair: drone 37 (lane 5 of
+    its warp) and drone 3000 move into contact, so in each of their warps one
+    lane alone passes the vote. The deltas match the plain version within
+    1e-6 and only those two drones move."""
+    c = _pair_consts()
+    pos, vel = _spread_fleet(4096)
+    pos[3000] = pos[37] + np.array([0.06, 0.0, 0.03], np.float32)
+    cols = torch.as_tensor(np.concatenate([pos, vel], 1).T.copy(), device=cuda)
+    if sort:
+        cols, _ = tpairs.sort_by_z(cols)
+    got = tia.interact_cuda(cols, c, cull=sort)
+    want = tia.interact_plain(cols, c)
+    moved = (got[1:4].abs().amax(0) > 0).nonzero()[:, 0]
+    assert moved.numel() == 2 and torch.equal(moved, (want[1:4].abs().amax(0) > 0).nonzero()[:, 0])
+    _wake_close(got[0], want[0])
+    torch.testing.assert_close(cols[:3] + got[1:4], cols[:3] + want[1:4], rtol=0, atol=1e-6)
+    torch.testing.assert_close(cols[3:] + got[4:], cols[3:] + want[4:], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("n,n_src", [(4097, None), (16384, None), (4096, 16384)])
+def test_k2_k5_passes_repeat_bit_for_bit(cuda, n, n_src, sort):
+    """The units' partial sums are added in a fixed order: a second pass
+    equals the first."""
+    c = _pair_consts()
+    tgt, src = _pair_cloud(cuda, n, n_src)
+    square = n_src is None
+    if sort:
+        tgt, src = _sorted(tgt, src, square)
+    t3, s3 = tgt[:3].contiguous(), src[:3].contiguous()
+    runs = [tdw.downwash_cuda(t3, s3, c, cull=sort, square=square) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    if square:
+        runs = [tia.interact_cuda(tgt, c, cull=sort) for _ in range(2)]
+        assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("n", [4096, 16384])
+def test_k4_equals_its_plain_version_bit_for_bit(cuda, n, sort):
+    """K4 is built with -fmad=false and nearly every drone of the square
+    cloud has at most one partner, whose term the two versions round alike:
+    it equals its plain version. (The rectangular form's targets, 1 cm from
+    their own sources, meet two or three partners, whose order of addition
+    differs; it is held at atol 1e-6 above.)"""
+    c = _pair_consts()
+    cols, _ = _pair_cloud(cuda, n)
+    if sort:
+        cols, _ = tpairs.sort_by_z(cols)
+    got = tco.collide_cuda(cols, cols, c, cull=sort)
+    assert float(got[:3].abs().max()) > 0
+    assert torch.equal(got, tco.collide_plain(cols, cols, c))
 
 
 def test_pair_factories_sorted_match_unsorted(cuda):

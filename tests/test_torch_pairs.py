@@ -4,7 +4,9 @@ kernels in interpret mode, square and rectangular, z-sorted and not.
 
 Tolerances are tests/test_soa.py's: the wake at rtol 1e-4 plus atol
 1e-4 * max(1, max|w|) (float32 sums in another order), positions and
-velocities after the contact deltas at atol 1e-6."""
+velocities after the contact deltas at atol 1e-6. Also the kernels'
+schedules, which are host code: K4's source split and K2's and K5's work
+units; and the pair gates by which chip_smoke.py prices its bounds."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -139,14 +141,61 @@ def test_pair_passes_keep_dtype_and_order():
 
 
 def test_source_split_covers_every_tile():
-    """The kernels' source split: no empty chunk, every tile covered, and
-    enough blocks to fill the card where the tiles allow."""
+    """K4's source split: no empty chunk, every tile covered, and enough
+    blocks to fill an H100 where the tiles allow, whatever card is at hand."""
     for nt, ns in ((1000, 1000), (4096, 4096), (16384, 16384), (4096, 16384), (256, 1024),
                    (1, 1), (33, 70000)):
         split, per = _pairs.source_split(nt, ns)
         tiles = -(-ns // _pairs.BLOCK)
         assert split * per >= tiles > (split - 1) * per
         assert split == tiles or -(-nt // _pairs.BLOCK) * split >= 4 * 132
+
+
+def _live_tiles(nt, ns, triangle):
+    """(block, tile) pairs that K2 / K5 must evaluate, by brute force: all of
+    them, or under the square wake cull those whose last source index lies
+    above the block's first target."""
+    blocks, n_tiles = -(-nt // _pairs.BLOCK), -(-ns // _pairs.BLOCK)
+    return {(b, j) for b in range(blocks) for j in range(n_tiles)
+            if not triangle or min(_pairs.BLOCK * (j + 1), ns) - 1 > _pairs.BLOCK * b}
+
+
+# (nt, ns, triangle): the square wake cull takes sources = targets.
+UNIT_SHAPES = [(n, n, tri) for n in (1000, 4096, 4097, 16384, 65536, 257, 1) for tri in (False, True)]
+UNIT_SHAPES += [(4096, 16384, False), (33, 70000, False)]
+
+
+@pytest.mark.parametrize("nt,ns,triangle", UNIT_SHAPES)
+def test_pair_units_cover_every_live_tile_once(nt, ns, triangle):
+    """K2's and K5's work units: every live tile in exactly one unit and no
+    other tile; a block's units in tile order, slots 0, 1, ... with the
+    block's unit count; at most ``UNIT_SLOTS`` a block; every block has a
+    unit (an empty one writes its zeros); the list is a function of the
+    shapes alone."""
+    units, per = _pairs.pair_units(nt, ns, triangle)
+    n_tiles = -(-ns // _pairs.BLOCK)
+    assert per == max(1, -(-n_tiles // _pairs.UNIT_SLOTS))
+    seen = []
+    for b in range(-(-nt // _pairs.BLOCK)):
+        mine = units[units[:, 0] == b]
+        assert len(mine) >= 1 and (mine[:, 3] == len(mine)).all() and len(mine) <= _pairs.UNIT_SLOTS
+        assert mine[:, 2].tolist() == list(range(len(mine)))
+        ends = [min(f + per, n_tiles) for f in mine[:, 1]]
+        assert all(e == f for e, f in zip(ends[:-1], mine[1:, 1]))  # consecutive, in tile order
+        seen += [(b, j) for f, e in zip(mine[:, 1], ends) for j in range(f, e)]
+    assert len(seen) == len(set(seen)) and set(seen) == _live_tiles(nt, ns, triangle)
+    again, _ = _pairs.pair_units(nt, ns, triangle)
+    assert units.dtype == np.int32 and np.array_equal(units, again)
+
+
+def test_pair_units_pin_the_shape_rule():
+    """The main path's shapes: N = 4096 unsorted (one tile a unit, 16 a
+    block) and N = 16384 z-sorted (two tiles a unit; K2 lists the 1056 units
+    of the upper triangle, K5 all 2048)."""
+    units, per = _pairs.pair_units(4096, 4096)
+    assert (len(units), per, int(units[:, 3].max())) == (256, 1, 16)
+    assert (len(_pairs.pair_units(16384, 16384, True)[0]), _pairs.pair_units(16384, 16384)[1]) == (1056, 2)
+    assert len(_pairs.pair_units(16384, 16384)[0]) == 2048
 
 
 def test_pair_factories_name_their_device():
@@ -158,3 +207,25 @@ def test_pair_factories_name_their_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_collide(tp)
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_smoke_bound_gates_hold_every_nonzero_pair_term(seed):
+    """chip_smoke.py's bound prices the rest of a pair term only on the pairs
+    its gate lets through: every pair whose plain wake term is not 0 passes
+    the wake gate, the pairs with a contact term are the contact gate's, and
+    needed_pairs counts the gates' pairs."""
+    import chip_smoke
+    from gym_pybullet_drones_tpu_torch.ops.collide_pairs import contact_terms
+    from gym_pybullet_drones_tpu_torch.ops.downwash_pairs import wake_terms
+
+    pos, vel = _cloud(512, seed)
+    c = _pairs.pair_consts(drone_params(device="cpu"))
+    cols = torch.as_tensor(np.concatenate([pos, vel], 1).T.copy())
+    t, s = cols[:, :, None], cols[:, None, :]
+    wake_gate, contact_gate = chip_smoke.pair_gates(t, s, c)
+    w = wake_terms(t, s, c)
+    assert bool((w[~wake_gate] == 0).all()) and int((w != 0).sum()) > 0
+    moved = torch.stack(contact_terms(t, s, c)[:3]).abs().amax(0) > 0
+    assert torch.equal(moved, contact_gate) and int(contact_gate.sum()) > 0
+    assert chip_smoke.needed_pairs(cols, c) == (int(wake_gate.sum()), int(contact_gate.sum()))
