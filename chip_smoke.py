@@ -9,13 +9,14 @@ or on any failed check. Imports nothing of JAX or of the JAX package.
 Phases, one or more lines each:
   1. the device, and nvidia-smi's name and power limit;
   2. build every kernel, one nvcc per source started together (K1,
-     csrc/velocity_rollout.cu; K2, K5, csrc/wake_pair_kernels.cu; K4,
-     csrc/pair_kernels.cu; K3, K6, csrc/masked_pair_kernels.cu), and print
-     ptxas's registers and spills, the units of K2 and K5 and the blocks of
-     K3 and K6 (at each source split S) resident per SM;
+     csrc/velocity_rollout.cu; K2, K4, K5, csrc/wake_pair_kernels.cu; K3, K6,
+     csrc/masked_pair_kernels.cu), and print ptxas's registers and spills,
+     the units of K2, K4 and K5 and the blocks of K3 and K6 (at each source
+     split S) resident per SM;
   3. hold K1 against its plain PyTorch version on the card at E = 4096
      (batch_reset state, formation actions): T = 8 and T = 240 (5 s) at atol
      1e-5 on every column, and at T = 240 finiteness and the ground clamp;
+     at T = 8 bit for bit at every lane count the launcher can choose;
   4. the main path through the user entry points, launch counts reset just
      before and read just after: batch_reset -> soa_from_state ->
      make_velocity_rollout (K1) -> soa_to_state -> compute_obs, at E = 4096
@@ -23,7 +24,9 @@ Phases, one or more lines each:
      steps (tests/test_soa.py's limits over the first 12);
   5. K1's time with CUDA events (E = 4096, T = 4800, after a warm-up, 5
      repeats), the plain version's time for T = 480 (a tenth of the depth:
-     it is launch-bound and would take a minute), and K1's bound;
+     it is launch-bound and would take a minute), and K1's bound; the
+     scaling line (E = 32, 4096, 16384, 65536 at the launcher's lanes, T =
+     4800) and E = 4096 at every lane count;
   6. the pair kernels K2, K4, K5 against their plain versions on the card,
      on tests/test_soa.py's cloud scaled to N = 4096 and 16384 with
      overlapping pairs: square with the z-sorted culls off and on, K2 and K4
@@ -31,8 +34,8 @@ Phases, one or more lines each:
      1e-4 plus atol 1e-6 (every wake term has one sign, so a reordered
      float32 sum errs relative to the sum itself), positions and velocities
      after the contact deltas at atol 1e-6; contacts fired, the culls
-     skipped tiles, launch counts; the whole z-sorted passes against the
-     unsorted ones;
+     skipped tiles, launch counts, each pass's work units; the whole
+     z-sorted passes against the unsorted ones;
   6b. the masked pair kernels K3, K6 against their plain versions on the
      card: the cloud under a random permutation, sorted by z and by Morton
      key at N = 4096 and 16384, the cone cull on and off, with a padding
@@ -64,7 +67,8 @@ Phases, one or more lines each:
      same checks; binned and sorted against "soa" over 3 control steps on
      that fleet and, with contact, on co-planar contact pairs beside unique-z
      towers (tests/test_soa.py:623-628's limits), the z order also with the
-     cone cull off; one control step of the
+     cone cull off, whose gap to "soa" bounds the cone-on gap (at most 10x:
+     the cull is exact); one control step of the
      binned kernel path on the card against the binned plain path on the CPU
      at N = 4096, on towers and on co-planar pairs beside towers;
   8. times: each pair kernel per pass (N = 4096 and 16384, culls off and
@@ -151,6 +155,8 @@ from gym_pybullet_drones_tpu_torch.ops.swarm_soa import (
 )
 from gym_pybullet_drones_tpu_torch.ops.velocity_rollout import (
     KERNEL,
+    LANES,
+    choose_lanes,
     make_velocity_rollout,
     velocity_rollout_cuda,
     velocity_rollout_plain,
@@ -200,14 +206,15 @@ PAIRS = {  # name -> (rows in, outputs, kernel, plain version, TPU kernel, sourc
     "K2": (3, 1, downwash_cuda, downwash_plain, "gym_pybullet_drones_tpu/ops/downwash_pallas.py:140",
            "gym_pybullet_drones_tpu_torch/csrc/wake_pair_kernels.cu"),
     "K4": (6, 6, collide_cuda, collide_plain, "gym_pybullet_drones_tpu/ops/collide_pallas.py:145",
-           "gym_pybullet_drones_tpu_torch/csrc/pair_kernels.cu"),
+           "gym_pybullet_drones_tpu_torch/csrc/wake_pair_kernels.cu"),
     "K5": (6, 7, interact_cuda, None, "gym_pybullet_drones_tpu/ops/interact_pallas.py:160",
            "gym_pybullet_drones_tpu_torch/csrc/wake_pair_kernels.cu"),
 }
 # The device kernels of the pair passes, by name in a torch.profiler trace:
-# K2 and K5 (wake_pair_kernel), K4 (collide_kernel and its reduce_kernel),
-# K3 and K6 (masked_pair_kernel).
-PAIR_KERNEL_NAMES = ("wake_pair_kernel", "collide_kernel", "reduce_kernel", "masked_pair_kernel")
+# K2, K4 and K5 (pair_unit_kernel), K3 and K6 (masked_pair_kernel).
+PAIR_KERNEL_NAMES = ("pair_unit_kernel", "masked_pair_kernel")
+# The scaling line of K1 (phase 5): envs, at T_TIME control steps.
+K1_SIZES = (32, 4096, 16384, 65536)
 MASKED = {  # name -> (rows in, outputs, kernel, plain version, maker, TPU kernel)
     "K3": (3, 1, downwash_masked_cuda, downwash_masked_plain, make_downwash_masked,
            "gym_pybullet_drones_tpu/ops/downwash_pallas.py:304"),
@@ -483,10 +490,10 @@ def contact_fleet(n):
 @contextlib.contextmanager
 def last_launch(kernel):
     """Records the stacked target columns and the output of the last launch
-    of the pair kernel ``kernel`` (by wrapping ``_pairs.launch`` and
+    of the pair kernel ``kernel`` (by wrapping ``_pairs.launch_units`` and
     ``_pairs.launch_masked``; the launch counters are the kernel wrappers'
     and stay as they are)."""
-    seen, launchers = {}, (_pairs.launch, _pairs.launch_masked)
+    seen, launchers = {}, (_pairs.launch_units, _pairs.launch_masked)
 
     def recording(launch):
         def call(name, tgt, *args, **kwargs):
@@ -496,11 +503,11 @@ def last_launch(kernel):
             return out
         return call
 
-    _pairs.launch, _pairs.launch_masked = (recording(f) for f in launchers)
+    _pairs.launch_units, _pairs.launch_masked = (recording(f) for f in launchers)
     try:
         yield seen
     finally:
-        _pairs.launch, _pairs.launch_masked = launchers
+        _pairs.launch_units, _pairs.launch_masked = launchers
 
 
 def contact_partners(pos, c):
@@ -608,6 +615,15 @@ def profile_steps(fn, steps):
                 kernels_per_step=len(kernels) / steps)
 
 
+def unit_schedule(name, nt, ns, sort, square):
+    """The work units the pair kernel ``name`` (K2, K4, K5) runs on, as a
+    phrase."""
+    triangle = _pairs.units_triangle(PAIRS[name][1], sort, square)
+    units, per_unit = _pairs.pair_units(nt, ns, triangle)
+    return (f"{len(units)} units of up to {per_unit} tiles, "
+            f"{int(units[:, 3].max())} a block at most")
+
+
 def phase6_pairs(dev, c, params):
     """The pair kernels against their plain versions on the card."""
     errs = {name: 0.0 for name in PAIRS}
@@ -622,14 +638,8 @@ def phase6_pairs(dev, c, params):
             tgt = _pairs.sort_by_z(tgt)[0]
             src = tgt if square else _pairs.sort_by_z(src)[0]
         total = math.ceil(nt / _pairs.BLOCK) * math.ceil(src.shape[1] / _pairs.BLOCK)
-        split, per = _pairs.source_split(nt, src.shape[1])
         for name in (PAIRS if square else ("K2", "K4")):
-            if name == "K4":
-                schedule = f"S={split} ({per} tiles a chunk)"
-            else:
-                units, per_unit = _pairs.pair_units(nt, src.shape[1], sort and square and name == "K2")
-                schedule = (f"{len(units)} units of up to {per_unit} tiles, "
-                            f"{int(units[:, 3].max())} a block at most")
+            schedule = unit_schedule(name, nt, src.shape[1], sort, square)
             tiles = torch.zeros(2, dtype=torch.int32, device=dev)
             got = pair_pass(name, tgt, src, c, sort, square, tiles=tiles)
             want = pair_pass(name, tgt, src, c, sort, square, plain=True)
@@ -868,8 +878,9 @@ def phase8_times(dev, c, params, ops):
                       f"the terms on {need[0]} wake pairs with dz > 0 within 10 m and {need[1]} "
                       f"pairs in touch; ops per pair {ops[name]} in all, {ops['gate ' + name]} "
                       f"of gates; {PEAK_FP32_FLOPS:.3g} ops/s, {PEAK_MUFU_PER_S:.4g} MUFU/s); "
-                      f"tiles left by the culls {counts} of {total}; library_ms null (no PyTorch "
-                      "call computes this function)", flush=True)
+                      f"{unit_schedule(name, n, n, sort, True)}, tiles left by the culls "
+                      f"{counts} of {total}; library_ms null (no PyTorch call computes this "
+                      "function)", flush=True)
 
     hover = float(params.hover_rpm)
     per_step = {False: dict(K2=5, K4=0, K5=0), True: dict(K2=1, K4=1, K5=4)}
@@ -1192,12 +1203,10 @@ def phase7b_backends(dev, params):
                       else (pos, rng.uniform(-0.2, 0.2, (n, 3)).astype(np.float32)))
         kin = fleet_kin(fpos, fvel, dev)
         outs = {}
-        # The cone cull takes beta = c2 dz + c3 -> 0 as an ever narrower
-        # Gaussian, while the pair term (as the JAX package's) puts beta^2 = 1
-        # where float32 beta is exactly 0, at dz = 0.6875 m. A tile pair culled
-        # by the cone can hold such a pair; the towers' levels drift through
-        # that dz, so the z order is also run with the cone off
-        # (scripts/torch_cone_guard.py finds the pairs).
+        # The towers' levels drift through dz = 0.6875 m, where float32 beta
+        # = c2 dz + c3 is exactly 0 and the wake term is 0, so the z order is
+        # also run with the cone cull off: the cull must not move the state
+        # (scripts/torch_cone_guard.py lists any term a culled sub-slice holds).
         for name, kw in (("soa", dict(backend="soa")),
                          ("binned", dict(backend="binned", init_pos=fpos)),
                          ("sorted z", dict(backend="soa", sorted=True, order="z")),
@@ -1210,11 +1219,22 @@ def phase7b_backends(dev, params):
                 s = step(s, rpm)
             outs[name] = export(s, kin)
         torch.cuda.synchronize()
-        line = []
+        line, gaps = [], {}
         for name in ("binned", "sorted z", "sorted z, cone off", "sorted morton"):
-            gaps = kin_gaps(outs[name], outs["soa"], REORDER_LIMITS)
-            check_kin_gaps(f"{name} against soa, N={n}, collisions={coll}", gaps, REORDER_LIMITS)
-            line.append(f"{name} {fmt(gaps)}")
+            gaps[name] = kin_gaps(outs[name], outs["soa"], REORDER_LIMITS)
+            check_kin_gaps(f"{name} against soa, N={n}, collisions={coll}", gaps[name],
+                           REORDER_LIMITS)
+            line.append(f"{name} {fmt(gaps[name])}")
+        # The cone cull drops only pairs whose term is exactly 0 (the wake
+        # term is 0 where float32 beta is 0), so the cone on is as close to
+        # "soa" as the cone off.
+        on, off = gaps["sorted z"], gaps["sorted z, cone off"]
+        if not all(on[k] <= 10 * off[k] for k in on):
+            fail(f"sorted z with the cone cull, N={n}, collisions={coll}: {fmt(on)} against "
+                 f"'soa', more than 10x the cone-off gap {fmt(off)}")
+        same = all(bool(torch.equal(getattr(outs["sorted z"], k),
+                                    getattr(outs["sorted z, cone off"], k))) for k in on)
+        line.append(f"cone on within 10x of cone off, the same state bit for bit: {same}")
         moved = ""
         if coll:  # contact and wake both moved what is compared
             push = float((outs["binned"].pos[:n // 2, :2] - kin.pos[:n // 2, :2]).abs().max())
@@ -1509,7 +1529,7 @@ def main():
 
     # ---------------- 2. build ----------------
     t0 = time.perf_counter()
-    sources = (KERNEL, _pairs.WAKE_KERNEL, _pairs.KERNEL, _pairs.MASKED_KERNEL)
+    sources = (KERNEL, _pairs.UNIT_KERNEL, _pairs.MASKED_KERNEL)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
         list(pool.map(_build.build, sources))
     print(f"[2] built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1517,8 +1537,8 @@ def main():
         for line in _build.ptxas_report(lib).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[2]   {lib}: {line.strip()}", flush=True)
-    for name, contact in (("K2", False), ("K5", True)):
-        held = _pairs.wake_blocks_per_sm(contact)
+    for name, wake, contact in (("K2", True, False), ("K4", False, True), ("K5", True, True)):
+        held = _pairs.unit_blocks_per_sm(wake, contact)
         print(f"[2]   {name} units of 128 threads resident per SM: {held} ({4 * held} warps)",
               flush=True)
     for name, contact in (("K3", False), ("K6", True)):
@@ -1567,8 +1587,19 @@ def main():
     max_abs_err = max(*errs.values(), *long_errs.values())
     if not low >= np.float32(z_min):
         fail(f"a drone is below the ground clamp: pz {low} < {z_min}")
-    if velocity_rollout_cuda.launches - before != 2:
-        fail("K1's launch count did not rise by the 2 launches of this phase")
+    # Bit for bit at every lane count: each lane of an env's group runs the
+    # plain version's operations in its order.
+    unequal = []
+    for lanes in LANES:
+        at = velocity_rollout_cuda(*args, T_SHORT, soa0, action, lanes=lanes)
+        unequal += [f"lanes {lanes}: {k}" for k in SOA_KEYS if not torch.equal(at[k], want[k])]
+    torch.cuda.synchronize()
+    if unequal:
+        fail("K1 differs from its plain version bit for bit at T=8: " + "; ".join(unequal))
+    print(f"[3] K1 vs plain, E={E} T={T_SHORT}: equal bit for bit at every lane count {LANES} "
+          f"(the launcher's choice at E={E}: {choose_lanes(E)})", flush=True)
+    if velocity_rollout_cuda.launches - before != 2 + len(LANES):
+        fail(f"K1's launch count did not rise by the {2 + len(LANES)} launches of this phase")
 
     # ---------------- 4. the main path ----------------
     velocity_rollout_cuda.launches = 0
@@ -1646,6 +1677,23 @@ def main():
           "wrapper's kernels and memsets)", flush=True)
     print(f"[5] plain version, same E, T={T_PLAIN} (a tenth of the kernel's depth), one run: "
           f"{p_ms:.1f} ms ({E * T_PLAIN / (p_ms / 1e3):.6g} env-steps/s)", flush=True)
+    # The scaling line: a warp alone (E = 32) against fuller grids, at the
+    # launcher's lanes, and E = 4096 at every lane count.
+    scaling = {}
+    for n in K1_SIZES:
+        s_n, a_n = soa_from_state(batch_reset(cfg, params, n, device=dev)), formation_actions(n, dev)
+        velocity_rollout_cuda(*args, 48, s_n, a_n)
+        scaling[n] = statistics.median(
+            event_ms(lambda: velocity_rollout_cuda(*args, T_TIME, s_n, a_n), 3))
+    by_lanes = {}
+    for lanes in LANES:
+        velocity_rollout_cuda(*args, 48, soa0, action, lanes=lanes)
+        by_lanes[lanes] = statistics.median(
+            event_ms(lambda: velocity_rollout_cuda(*args, T_TIME, soa0, action, lanes=lanes), 3))
+    print(f"[5] K1 scaling line, T={T_TIME}, ms at the launcher's lanes: "
+          + ", ".join(f"E={n} (lanes {choose_lanes(n)}) {scaling[n]:.4f}" for n in K1_SIZES)
+          + f"; E={E} by lanes: " + ", ".join(f"{L}: {t:.4f}" for L, t in by_lanes.items()),
+          flush=True)
     print(f"[5] bound: {per_env} ops per env for T={T_TIME} (ops per piece: "
           f"{json.dumps(parts)}; FMA counts 2 in the peak), {flops:.4g} ops / {PEAK_FP32_FLOPS:.3g} = {flops / PEAK_FP32_FLOPS * 1e3:.4g} ms; "
           f"{nbytes} bytes / {PEAK_BYTES_PER_S:.3g} = {nbytes / PEAK_BYTES_PER_S * 1e3:.4g} ms; "
@@ -1671,12 +1719,12 @@ def main():
 
     # ---------------- 9. result ----------------
     kernels = [{
-        "name": KERNEL, "route": "cuda",
+        "name": f"K1 {KERNEL}", "route": "cuda",
         "source": "gym_pybullet_drones_tpu_torch/csrc/velocity_rollout.cu",
         "replaces": "gym_pybullet_drones_tpu/ops/velocity_pallas.py:74",
         "launches": launches[KERNEL], "max_abs_err": max_abs_err,
         "ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms, "plain_steps": T_PLAIN,
-        "bound_ms": bound_ms,
+        "lanes": choose_lanes(E), "one_warp_ms": scaling[32], "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
     }]
     for pid in PAIRS:
@@ -1700,7 +1748,7 @@ def main():
             **masked_times[pid], "library_ms": None,
             "max_abs_err": max(pair_errs[pid], masked_times[pid]["max_abs_err"]),
         })
-    kernels.sort(key=lambda k: k["name"] if k["name"][0] == "K" else "K1")
+    kernels.sort(key=lambda k: k["name"])
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
             fail(f"non-finite measurement for {k['name']}")

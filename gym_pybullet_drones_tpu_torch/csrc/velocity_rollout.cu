@@ -1,4 +1,5 @@
-// K1: whole VelocityAviary rollout chunks, one thread per env.
+// K1: whole VelocityAviary rollout chunks, each env laid over a group of L
+// lanes of a warp.
 //
 // Replaces the TPU kernel `make_velocity_rollout_pallas` in
 // gym_pybullet_drones_tpu/ops/velocity_pallas.py (its inner `kernel`). It
@@ -7,34 +8,60 @@
 // Physics.PYB substeps (thrust at the prop offsets, yaw reaction torque,
 // Newton-Euler, axis-angle quaternion update, ground clamp).
 //
-// Design. Each thread owns one env: it loads its 26 state values and 4 action
-// values into registers once, runs the whole time loop, and stores its 26
-// values once. Nothing passes through device memory between steps.
-//
 // Bound. Per launch the kernel moves (30 + 26) * 4 bytes per env, against
 // about 10^3 floating-point operations per env-step times `num_steps`; at
 // the main path's chunk lengths it is bound by operations, never by bytes.
-// Each thread's step is one long dependent chain, so the time is set by
-// instruction latency: the design spreads the envs over as many SMs as
-// possible (blocks of 32 threads: 4096 envs -> 128 blocks on 132 SMs) and
-// leaves deeper per-SM occupancy and instruction-level parallelism to a
-// later change.
+// On the card it is bound by neither: each env's step is one long dependent
+// chain (true divisions and square roots, each a short Newton sequence behind
+// a slow-path branch; atan2f, asinf, sinf, cosf; with -fmad=false every
+// multiply-add two dependent instructions), so a warp alone takes as long as
+// 512 warps side by side (the scaling line in PERF.md). The time is the
+// chain's latency.
 //
-// Math. IEEE atan2f, asinf, sinf, cosf, sqrtf and true division. Build
-// without --use_fast_math (no __sinf, no approximate division) and with
-// -fmad=false, so every add and multiply rounds separately, as in the plain
-// PyTorch version: the closed loop amplifies every extra rounding
-// difference. This halves the float32 ceiling against a build that fuses
-// multiply-add pairs, a price paid for bit parity. (The plain version divides by host constants as true
-// divisions too; see `_div` in ops/velocity_soa.py.) With the same libdevice
-// transcendentals on both sides, K1 and the plain version agree bit for bit
-// on the card. Clamps propagate NaN like torch.clamp, so a diverged env stays
-// visibly non-finite. Every literal is a float (0.5f): a bare 0.5 would
-// promote the expression to double.
+// Design. The env's state stays in registers for the whole time loop, and
+// nothing passes through device memory between steps. An env is laid over a
+// group of L consecutive lanes (L = 1, 2 or 4, chosen by the launcher from E
+// so that the grid fills the schedulers). Every lane of a group holds the
+// whole state and runs the serial parts of the step itself, on the same
+// inputs with the same operations, so the lanes agree bit for bit. Where the
+// step has K independent operations of one kind on different data (the
+// stages below), lane j evaluates operation j (and j + L, ... where K > L),
+// one instruction stream for the warp, and __shfl_sync brings each result to
+// every lane of the group, exactly. A stage thus costs one operation's
+// latency and a shuffle in place of K latencies:
+//   DSLPID:  atan2f of roll and yaw; the divisions of the thrust and of the
+//            three rate errors; the square roots of the thrust and of |t|;
+//            the divisions of the thrust PWM and of z_des; of y_des;
+//   substep: the three accelerations' divisions by m and sin(theta) / |w|;
+//            the quaternion's four divisions by its norm.
+// Each lane evaluates exactly the operations of the plain version in its
+// order, so the result is the same for every L. Bit-exact rewrites that
+// shorten the chain further: sincosf in place of sinf and cosf of one angle
+// (equal bit for bit to both on every float32, checked on the H100), x * 0.5f
+// for x / 2.0f (exact), NaN-propagating max.NaN / min.NaN in the clamps (one
+// instruction each, equal to the isnan test with fminf / fmaxf on every
+// number), and selects for the branches of the quaternion update and the
+// ground clamp. No stage is wider than four operations, so eight lanes gain
+// nothing over four (measured slower at every E): the launcher offers 1, 2
+// and 4.
+//
+// Math. IEEE atan2f, asinf, sincosf, sqrtf and true division. Build without
+// --use_fast_math (no __sinf, no approximate division) and with -fmad=false,
+// so every add and multiply rounds separately, as in the plain PyTorch
+// version: the closed loop amplifies every extra rounding difference (one
+// built with FMA contraction is 0.1 rpm off at T = 8 and 3,400 rpm at T = 240).
+// The plain version divides by host constants as true divisions too (`_div`
+// in ops/velocity_soa.py). With the same libdevice transcendentals on both
+// sides, K1 and the plain version agree bit for bit on the card. Clamps
+// propagate NaN like torch.clamp, so a diverged env stays visibly non-finite.
+// Every literal is a float (0.5f): a bare 0.5 would promote the expression to
+// double.
 //
 // Layout. `in` is (30, E) float32: the 26 state rows in SOA_KEYS order, then
-// the action rows ax, ay, az, amag. `out` is (26, E). Thread e reads
-// in[k * E + e], so a warp's loads are coalesced. The ragged edge is masked.
+// the action rows ax, ay, az, amag. `out` is (26, E). The lanes of group g
+// read in[k * E + g] (one broadcast load), and lane j stores the rows k with
+// k % L == j. Groups past the ragged edge compute on the last env and store
+// nothing, so that every lane of a warp takes part in the shuffles.
 //
 // Interface: plain C, loaded with ctypes. The launch goes on the caller's
 // stream; the function returns cudaGetLastError().
@@ -46,7 +73,8 @@
 namespace {
 
 constexpr int kStateRows = 26;
-constexpr int kBlock = 32;
+constexpr int kBlock = 32;  // one warp a block: the warps spread over every SM
+constexpr unsigned kAll = 0xFFFFFFFFu;
 
 // Host packs these floats in this order (ops/velocity_rollout.py, _pack).
 struct VelConsts {
@@ -66,19 +94,91 @@ struct VelConsts {
 constexpr int kNumConsts = sizeof(VelConsts) / sizeof(float);
 static_assert(kNumConsts == 60, "VelConsts layout changed: update the host packing");
 
+// max and min that return NaN if either input is NaN (PTX, sm_80 and up).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 __device__ __forceinline__ float clip(float x, float lo, float hi) {
-  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+  return min_nan(max_nan(x, lo), hi);
 }
 
-__device__ __forceinline__ float max0(float x) {
-  return isnan(x) ? x : fmaxf(x, 0.0f);
-}
+__device__ __forceinline__ float max0(float x) { return max_nan(x, 0.0f); }
 
+struct Div {
+  __device__ __forceinline__ float operator()(float a, float b) const { return a / b; }
+};
+struct Sqrt {
+  __device__ __forceinline__ float operator()(float a, float) const { return sqrtf(a); }
+};
+struct Atan2 {
+  __device__ __forceinline__ float operator()(float y, float x) const { return atan2f(y, x); }
+};
+
+__host__ __device__ constexpr int log2_of(int x) { return x <= 1 ? 0 : 1 + log2_of(x / 2); }
+
+// The L lanes of one env. j: this lane's rank in the group.
+template <int L>
+struct Group {
+  int j;
+
+  // a[i] for i = r L + j, the operand of this lane in round r (a tree of
+  // selects on the bits of j; indices past K take the last operand). Every
+  // index is a constant once the loops unroll, so v stays in registers.
+  template <int K>
+  __device__ __forceinline__ float operand(const float (&a)[K], int r) const {
+    constexpr int kLevels = log2_of(L);
+    float v[L];
+#pragma unroll
+    for (int m = 0; m < L; ++m) v[m] = a[min(r * L + m, K - 1)];
+#pragma unroll
+    for (int level = 0; level < kLevels; ++level) {
+      const int w = L >> (level + 1);
+#pragma unroll
+      for (int m = 0; m < L / 2; ++m) {
+        if (m < w) v[m] = (j & w) ? v[m + w] : v[m];
+      }
+    }
+    return v[0];
+  }
+
+  // y[i] = f(a[i], b[i]) for the K independent operations i of one stage, on
+  // every lane of the group: lane j evaluates i = j, j + L, ... and the
+  // results travel by shuffle, bit for bit.
+  template <int K, class F>
+  __device__ __forceinline__ void map(F f, const float (&a)[K], const float (&b)[K],
+                                      float (&y)[K]) const {
+    constexpr int kRounds = (K + L - 1) / L;
+    float part[kRounds];
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) part[r] = f(operand<K>(a, r), operand<K>(b, r));
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      if constexpr (L == 1) {
+        y[i] = part[i];
+      } else {
+        y[i] = __shfl_sync(kAll, part[i / L], i % L, L);
+      }
+    }
+  }
+};
+
+template <int L>
 __global__ void __launch_bounds__(kBlock)
 velocity_rollout_kernel(const float* __restrict__ in, float* __restrict__ out,
                         long long E, VelConsts c, int n_substeps, int num_steps) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
+  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long env = lane / L;
+  const Group<L> g{(int)(lane % L)};
+  const long long e = env < E ? env : E - 1;
 
   float px = in[0 * E + e], py = in[1 * E + e], pz = in[2 * E + e];
   float qx = in[3 * E + e], qy = in[4 * E + e], qz = in[5 * E + e], qw = in[6 * E + e];
@@ -107,9 +207,10 @@ velocity_rollout_kernel(const float* __restrict__ in, float* __restrict__ out,
       const float r10 = 2.0f * (xy + wzq), r11 = 1.0f - 2.0f * (xx + zz), r12 = 2.0f * (yz - wxq);
       const float r20 = 2.0f * (xz - wyq), r21 = 2.0f * (yz + wxq), r22 = 1.0f - 2.0f * (xx + yy);
 
-      const float roll = atan2f(r21, r22);
+      float rpy[2];  // roll, yaw
+      g.template map<2>(Atan2{}, {r21, r10}, {r22, r00}, rpy);
+      const float roll = rpy[0], yaw = rpy[1];
       const float pitch = asinf(clip(-r20, -1.0f, 1.0f));
-      const float yaw = atan2f(r10, r00);
 
       // pos_e == 0 (target_pos = cur_pos): integrals clipped but unchanged,
       // z twice (the generic clip, then its own).
@@ -121,18 +222,28 @@ velocity_rollout_kernel(const float* __restrict__ in, float* __restrict__ out,
       const float tty = c.i_for[1] * ip[1] + c.d_for[1] * ey;
       const float ttz = c.i_for[2] * ip[2] + c.d_for[2] * ez + c.grav;
       const float scalar_thrust = max0(ttx * r02 + tty * r12 + ttz * r22);
-      const float thrust_pwm = (sqrtf(scalar_thrust / c.four_kf_c) - c.cnst) / c.scale;
-      const float tnorm = sqrtf(ttx * ttx + tty * tty + ttz * ttz);
-      const float zdx = ttx / tnorm, zdy = tty / tnorm, zdz = ttz / tnorm;
-      const float cyaw = cosf(yaw), syaw = sinf(yaw);
+      float syaw, cyaw;
+      sincosf(yaw, &syaw, &cyaw);
+      // scalar_thrust / 4 kf and the rate errors -(rpy - last rpy) / ctrl_dt.
+      const float cur[3] = {roll, pitch, yaw};
+      float d1[4];
+      g.template map<4>(Div{}, {scalar_thrust, -(roll - lr[0]), -(pitch - lr[1]), -(yaw - lr[2])},
+                        {c.four_kf_c, c.ctrl_dt, c.ctrl_dt, c.ctrl_dt}, d1);
+      float roots[2];  // sqrt(thrust / 4 kf), |t|
+      g.template map<2>(Sqrt{}, {d1[0], ttx * ttx + tty * tty + ttz * ttz}, {0.0f, 0.0f}, roots);
+      const float tnorm = roots[1];
+      float d2[4];  // the thrust PWM and z_des = t / |t|
+      g.template map<4>(Div{}, {roots[0] - c.cnst, ttx, tty, ttz}, {c.scale, tnorm, tnorm, tnorm},
+                        d2);
+      const float thrust_pwm = d2[0], zdx = d2[1], zdy = d2[2], zdz = d2[3];
       // y_des = normalize(z_des x x_c), x_c = (cos yaw, sin yaw, 0)
-      float yx = zdy * 0.0f - zdz * syaw;
-      float yyd = zdz * cyaw - zdx * 0.0f;
-      float yzd = zdx * syaw - zdy * cyaw;
-      const float yn = sqrtf(yx * yx + yyd * yyd + yzd * yzd);
-      yx = yx / yn;
-      yyd = yyd / yn;
-      yzd = yzd / yn;
+      const float yx0 = zdy * 0.0f - zdz * syaw;
+      const float yy0 = zdz * cyaw - zdx * 0.0f;
+      const float yz0 = zdx * syaw - zdy * cyaw;
+      const float yn = sqrtf(yx0 * yx0 + yy0 * yy0 + yz0 * yz0);
+      float yd[3];
+      g.template map<3>(Div{}, {yx0, yy0, yz0}, {yn, yn, yn}, yd);
+      const float yx = yd[0], yyd = yd[1], yzd = yd[2];
       // x_des = y_des x z_des
       const float xxd = yyd * zdz - yzd * zdy;
       const float xyd = yzd * zdx - yx * zdz;
@@ -142,17 +253,18 @@ velocity_rollout_kernel(const float* __restrict__ in, float* __restrict__ out,
       const float e02 = (xxd * r02 + xyd * r12 + xzd * r22) - (r00 * zdx + r10 * zdy + r20 * zdz);
       const float e10 = (yx * r00 + yyd * r10 + yzd * r20) - (r01 * xxd + r11 * xyd + r21 * xzd);
       const float rot_e[3] = {e21, e02, e10};
-      const float cur[3] = {roll, pitch, yaw};
 
       float tq[3];
+#pragma unroll
       for (int k = 0; k < 3; ++k) {
-        const float rr_e = -(cur[k] - lr[k]) / c.ctrl_dt;
+        const float rr_e = d1[1 + k];
         ir[k] = clip(ir[k] - rot_e[k] * c.ctrl_dt, -1500.0f, 1500.0f);
         if (k < 2) ir[k] = clip(ir[k], -1.0f, 1.0f);
         tq[k] = clip(-c.p_tor[k] * rot_e[k] + c.d_tor[k] * rr_e + c.i_tor[k] * ir[k],
                      -3200.0f, 3200.0f);
         lr[k] = cur[k];
       }
+#pragma unroll
       for (int m = 0; m < 4; ++m) {
         float pwm = thrust_pwm + c.mixer[m][0] * tq[0] + c.mixer[m][1] * tq[1] +
                     c.mixer[m][2] * tq[2];
@@ -163,6 +275,7 @@ velocity_rollout_kernel(const float* __restrict__ in, float* __restrict__ out,
 
     // The forces depend on the RPMs alone: constant across the substeps.
     float f[4], tm[4];
+#pragma unroll
     for (int m = 0; m < 4; ++m) {
       f[m] = rpm[m] * rpm[m] * c.kf;
       tm[m] = rpm[m] * rpm[m] * c.km * c.yaw_sign;
@@ -183,9 +296,6 @@ velocity_rollout_kernel(const float* __restrict__ in, float* __restrict__ out,
       const float r10 = 2.0f * (xy + wzq), r11 = 1.0f - 2.0f * (xx + zz), r12 = 2.0f * (yz - wxq);
       const float r20 = 2.0f * (xz - wyq), r21 = 2.0f * (yz + wxq), r22 = 1.0f - 2.0f * (xx + yy);
 
-      const float axw = r02 * fsum / c.m, ayw = r12 * fsum / c.m, azw = r22 * fsum / c.m - c.g;
-      float nvx = vx + c.pyb_dt * axw, nvy = vy + c.pyb_dt * ayw, nvz = vz + c.pyb_dt * azw;
-
       // omega world -> body: R^T w; coupling = w x (J w), J diagonal
       const float obx = r00 * wx + r10 * wy + r20 * wz;
       const float oby = r01 * wx + r11 * wy + r21 * wz;
@@ -200,71 +310,92 @@ velocity_rollout_kernel(const float* __restrict__ in, float* __restrict__ out,
       float nwy = r10 * nbx + r11 * nby + r12 * nbz;
       float nwz = r20 * nbx + r21 * nby + r22 * nbz;
 
+      // integrate_quat (axis-angle, body rates nb), then renormalize
+      const float onorm = sqrtf(nbx * nbx + nby * nby + nbz * nbz);
+      const float sn = fmaxf(onorm, 1e-9f);
+      const float theta = sn * c.pyb_dt * 0.5f;
+      float sin_t, ct;
+      sincosf(theta, &sin_t, &ct);
+      // The accelerations' divisions by m, and sin(theta) / |w|.
+      float d[4];
+      g.template map<4>(Div{}, {r02 * fsum, r12 * fsum, r22 * fsum, sin_t}, {c.m, c.m, c.m, sn}, d);
+      const float axw = d[0], ayw = d[1], azw = d[2] - c.g, st = d[3];
+      float nvx = vx + c.pyb_dt * axw, nvy = vy + c.pyb_dt * ayw, nvz = vz + c.pyb_dt * azw;
+
       px = px + c.pyb_dt * nvx;
       py = py + c.pyb_dt * nvy;
       float npz = pz + c.pyb_dt * nvz;
 
-      // integrate_quat (axis-angle, body rates nb), then renormalize
-      const float onorm = sqrtf(nbx * nbx + nby * nby + nbz * nbz);
-      const float sn = fmaxf(onorm, 1e-9f);
-      const float theta = sn * c.pyb_dt / 2.0f;
-      const float ct = cosf(theta), st = sinf(theta) / sn;
       const float mqx = nbz * qy - nby * qz + nbx * qw;
       const float mqy = -nbz * qx + nbx * qz + nby * qw;
       const float mqz = nby * qx - nbx * qy + nbz * qw;
       const float mqw = -nbx * qx - nby * qy - nbz * qz;
-      if (onorm > 1e-9f) {
-        qx = ct * qx + st * mqx;
-        qy = ct * qy + st * mqy;
-        qz = ct * qz + st * mqz;
-        qw = ct * qw + st * mqw;
-      }
+      const bool turn = onorm > 1e-9f;
+      qx = turn ? ct * qx + st * mqx : qx;
+      qy = turn ? ct * qy + st * mqy : qy;
+      qz = turn ? ct * qz + st * mqz : qz;
+      qw = turn ? ct * qw + st * mqw : qw;
       const float qn = sqrtf(qx * qx + qy * qy + qz * qz + qw * qw);
-      qx = qx / qn;
-      qy = qy / qn;
-      qz = qz / qn;
-      qw = qw / qn;
+      float qd[4];
+      g.template map<4>(Div{}, {qx, qy, qz, qw}, {qn, qn, qn, qn}, qd);
+      qx = qd[0];
+      qy = qd[1];
+      qz = qd[2];
+      qw = qd[3];
 
       // plane contact clamp; `pressed` reads the pre-clamp acceleration
       const bool below = npz < c.z_min;
-      if (below) {
-        npz = c.z_min;
-        nvz = max0(nvz);
-        if (azw <= 0.0f) {
-          nwx = 0.0f;
-          nwy = 0.0f;
-          nwz = 0.0f;
-        }
-      }
-      pz = npz;
+      const bool pressed = below & (azw <= 0.0f);
+      pz = below ? c.z_min : npz;
       vx = nvx;
       vy = nvy;
-      vz = nvz;
-      wx = nwx;
-      wy = nwy;
-      wz = nwz;
+      vz = below ? max0(nvz) : nvz;
+      wx = pressed ? 0.0f : nwx;
+      wy = pressed ? 0.0f : nwy;
+      wz = pressed ? 0.0f : nwz;
     }
   }
 
+  if (env >= E) return;
   const float result[kStateRows] = {px, py, pz, qx, qy, qz, qw, vx, vy, vz, wx, wy, wz,
                                     rpm[0], rpm[1], rpm[2], rpm[3], ip[0], ip[1], ip[2],
                                     ir[0], ir[1], ir[2], lr[0], lr[1], lr[2]};
 #pragma unroll
-  for (int k = 0; k < kStateRows; ++k) out[k * E + e] = result[k];
+  for (int k = 0; k < kStateRows; ++k) {
+    if (k % L == g.j) out[k * E + env] = result[k];
+  }
+}
+
+template <int L>
+cudaError_t launch(const float* in, float* out, long long E, const VelConsts& c, int n_substeps,
+                   int num_steps, cudaStream_t st) {
+  const long long blocks = (E * L + kBlock - 1) / kBlock;
+  velocity_rollout_kernel<L><<<(unsigned int)blocks, kBlock, 0, st>>>(in, out, E, c, n_substeps,
+                                                                      num_steps);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// K1: out (26, E) = `num_steps` control steps from in (30, E), each env over
+// `lanes` lanes (1, 2 or 4).
 extern "C" int velocity_rollout(const void* in, void* out, long long E, const void* consts,
-                                int n_consts, int n_substeps, int num_steps, void* stream) {
-  if (n_consts != kNumConsts || E < 0 || n_substeps < 0 || num_steps < 0) {
+                                int n_consts, int n_substeps, int num_steps, int lanes,
+                                void* stream) {
+  if (n_consts != kNumConsts || E < 0 || n_substeps < 0 || num_steps < 0 ||
+      E * lanes >= (1LL << 31)) {
     return (int)cudaErrorInvalidValue;
   }
   if (E == 0) return (int)cudaSuccess;
   VelConsts c;
   memcpy(&c, consts, sizeof(VelConsts));
-  const unsigned int blocks = (unsigned int)((E + kBlock - 1) / kBlock);
-  velocity_rollout_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      (const float*)in, (float*)out, E, c, n_substeps, num_steps);
-  return (int)cudaGetLastError();
+  const auto* i = (const float*)in;
+  auto* o = (float*)out;
+  const auto st = (cudaStream_t)stream;
+  switch (lanes) {
+    case 1: return (int)launch<1>(i, o, E, c, n_substeps, num_steps, st);
+    case 2: return (int)launch<2>(i, o, E, c, n_substeps, num_steps, st);
+    case 4: return (int)launch<4>(i, o, E, c, n_substeps, num_steps, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -26,12 +26,13 @@ def _flags(fmad: bool):
 
 
 # Each source's flags. K1 (velocity_rollout) equals its plain version bit for
-# bit only if adds and multiplies round separately, as in PyTorch: -fmad=false;
-# K4 (pair_kernels) keeps it too. K2, K5 (wake_pair_kernels) and K3, K6
-# (masked_pair_kernels) are held to tolerances and contract multiply-adds into
-# FMAs: fewer instructions a pair.
-NVCC_FLAGS = {"velocity_rollout": _flags(fmad=False), "pair_kernels": _flags(fmad=False),
-              "wake_pair_kernels": _flags(fmad=True), "masked_pair_kernels": _flags(fmad=True)}
+# bit only if adds and multiplies round separately, as in PyTorch: -fmad=false.
+# K2, K4, K5 (wake_pair_kernels) and K3, K6 (masked_pair_kernels) contract
+# multiply-adds into FMAs: fewer instructions a pair. The wake is held to
+# tolerances; the contact term rounds each step itself (csrc/pair_terms.cuh),
+# so K4 still equals its plain version bit for bit.
+NVCC_FLAGS = {"velocity_rollout": _flags(fmad=False), "wake_pair_kernels": _flags(fmad=True),
+              "masked_pair_kernels": _flags(fmad=True)}
 
 
 def _nvcc() -> str:

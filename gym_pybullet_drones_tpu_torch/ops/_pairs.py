@@ -4,9 +4,10 @@ launches and the chunked plain evaluation.
 The three wrapper modules (``ops/downwash_pairs.py``, ``ops/collide_pairs.py``,
 ``ops/interact_pairs.py``) each hold one pass's pair arithmetic in plain
 PyTorch and its kernels' wrappers; the kernels themselves are
-``csrc/wake_pair_kernels.cu`` (K2, K5), ``csrc/pair_kernels.cu`` (K4) and
-``csrc/masked_pair_kernels.cu`` (the mask-gated K3 and K6), which share their
-pair constants and terms through ``csrc/pair_terms.cuh``.
+``csrc/wake_pair_kernels.cu`` (K2, K4, K5: one unit kernel over the work
+units of ``pair_units``) and ``csrc/masked_pair_kernels.cu`` (the mask-gated
+K3 and K6), which share their pair constants and terms through
+``csrc/pair_terms.cuh``.
 
 Layout at the kernel boundary: the target columns stacked into one contiguous
 (rows, Nt) float32 tensor (x, y, z and, for contact, vx, vy, vz), the source
@@ -23,15 +24,10 @@ import torch
 
 from gym_pybullet_drones_tpu_torch.ops import _build
 
-KERNEL = "pair_kernels"
-WAKE_KERNEL = "wake_pair_kernels"
+UNIT_KERNEL = "wake_pair_kernels"
 MASKED_KERNEL = "masked_pair_kernels"
-BLOCK = 256  # targets per block and sources per tile (csrc/{wake_,}pair_kernels.cu)
-# K4's grid: blocks wanted in flight, four for each SM of an H100 (a constant,
-# not the card's count, so that the bits never depend on the card). The source
-# split S is chosen so that target blocks x S reaches it where the tiles allow.
-_K4_BLOCKS = 4 * 132
-# K2 and K5: units a target block is cut into at most (one bit each of the
+BLOCK = 256  # targets per block and sources per tile (csrc/wake_pair_kernels.cu)
+# K2, K4 and K5: units a target block is cut into at most (one bit each of the
 # kernel's 32-bit mask word).
 UNIT_SLOTS = 32
 # Fleet size above which the passes sort by z and cull tiles (the JAX
@@ -72,19 +68,8 @@ def use_z_sort(z_sort, nt: int, ns: int) -> bool:
     return max(nt, ns) >= Z_SORT_MIN_N if z_sort is None else bool(z_sort)
 
 
-def source_split(nt: int, ns: int):
-    """K4's ``(S, tiles_per_chunk)``: the source tiles split into S chunks of
-    whole tiles, none empty, so that the target blocks times S reach
-    ``_K4_BLOCKS`` where the tiles allow. The shapes alone fix it."""
-    n_tiles = max(1, math.ceil(ns / BLOCK))
-    blocks = max(1, math.ceil(nt / BLOCK))
-    want = max(1, min(n_tiles, math.ceil(_K4_BLOCKS / blocks)))
-    per = n_tiles // want
-    return math.ceil(n_tiles / per), per
-
-
 def pair_units(nt: int, ns: int, triangle: bool = False):
-    """K2's and K5's work units: ``(units, per_unit)``, ``units`` an
+    """K2's, K4's and K5's work units: ``(units, per_unit)``, ``units`` an
     (n_units, 4) int32 array of (target block, first source tile, slot, units
     of the block) and ``per_unit`` the source tiles a unit spans at most.
 
@@ -328,24 +313,12 @@ def launch_masked(name: str, tgt: torch.Tensor, src: torch.Tensor, words: torch.
 
 
 @functools.cache
-def library():
-    """K4's C entry point in ``csrc/pair_kernels.cu``, built at first use and
-    typed once."""
-    fn = ctypes.CDLL(_build.build(KERNEL)).collide_pairs
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def wake_library():
-    """The C entry points of ``csrc/wake_pair_kernels.cu`` (K2, K5 and the
+def unit_library():
+    """The C entry points of ``csrc/wake_pair_kernels.cu`` (K2, K4, K5 and the
     occupancy query), built at first use and typed once."""
-    lib = ctypes.CDLL(_build.build(WAKE_KERNEL))
+    lib = ctypes.CDLL(_build.build(UNIT_KERNEL))
     fns = {}
-    for name in ("downwash_pairs", "interact_pairs"):
+    for name in ("downwash_pairs", "collide_pairs", "interact_pairs"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -354,18 +327,18 @@ def wake_library():
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
-    fn = lib.wake_blocks_per_sm
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn = lib.unit_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    fns["wake_blocks_per_sm"] = fn
+    fns["unit_blocks_per_sm"] = fn
     return fns
 
 
-def wake_blocks_per_sm(contact: bool) -> int:
-    """Units of K2 (``contact`` False) or K5 that one SM of the current card
-    holds at once."""
+def unit_blocks_per_sm(wake: bool, contact: bool) -> int:
+    """Units of K2 (``wake`` alone), K4 (``contact`` alone) or K5 (both) that
+    one SM of the current card holds at once."""
     blocks = ctypes.c_int(0)
-    rc = wake_library()["wake_blocks_per_sm"](int(contact), ctypes.addressof(blocks))
+    rc = unit_library()["unit_blocks_per_sm"](int(wake), int(contact), ctypes.addressof(blocks))
     if rc != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed: cudaError {rc}")
     return blocks.value
@@ -377,28 +350,10 @@ def _check_tiles(name: str, tiles, device: torch.device):
         raise ValueError(f"{name}'s tile counter is an int32 tensor of 2 on {device}")
 
 
-def launch(name: str, tgt: torch.Tensor, src: torch.Tensor, c: PairConsts, cull: bool,
-           tiles=None) -> torch.Tensor:
-    """Run K4 (``name``, ``csrc/pair_kernels.cu``) on stacked float32 CUDA
-    columns and return its (6, Nt) output. ``tiles``, an int32 CUDA tensor of
-    2, receives in ``tiles[1]`` the (block, tile) pairs evaluated. Raises on
-    anything the kernel does not take and on a failed launch."""
-    check_columns(name, tgt, src)
-    _check_tiles(name, tiles, tgt.device)
-    nt, ns = tgt.shape[1], src.shape[1]
-    split, per = source_split(nt, ns)
-    out = torch.empty((6, nt), dtype=torch.float32, device=tgt.device)
-    partial = (torch.empty((split, 6, nt), dtype=torch.float32, device=tgt.device)
-               if split > 1 else out)
-    host = (ctypes.c_float * len(c))(*c)
-    with torch.cuda.device(tgt.device):
-        stream = torch.cuda.current_stream(tgt.device).cuda_stream
-        rc = library()(tgt.data_ptr(), nt, src.data_ptr(), ns, int(cull), ctypes.addressof(host),
-                       len(host), split, per, partial.data_ptr(), out.data_ptr(),
-                       None if tiles is None else tiles.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    return out
+def units_triangle(n_out: int, cull: bool, square: bool) -> bool:
+    """Whether a unit pass lists the triangle's units alone: K2 (one output)
+    with the square wake cull. K4 and K5 list every unit, sorted or not."""
+    return cull and square and n_out == 1
 
 
 @functools.cache
@@ -411,25 +366,25 @@ def unit_table(nt: int, ns: int, triangle: bool, device: torch.device):
 
 def launch_units(name: str, tgt: torch.Tensor, src: torch.Tensor, c: PairConsts, n_out: int,
                  cull: bool, square: bool, tiles=None) -> torch.Tensor:
-    """Run K2 or K5 (``name``, ``csrc/wake_pair_kernels.cu``) on stacked
+    """Run K2, K4 or K5 (``name``, ``csrc/wake_pair_kernels.cu``) on stacked
     float32 CUDA columns and return its (n_out, Nt) output, over the work
     units of ``pair_units`` (the live ones alone where K2's square wake cull
-    holds). ``tiles``, an int32 CUDA tensor of 2, receives the (block, tile)
-    pairs each section evaluated. Raises on anything the kernel does not take
-    and on a failed launch."""
+    holds): one launch after one memset. ``tiles``, an int32 CUDA tensor of
+    2, receives the (block, tile) pairs each section evaluated. Raises on
+    anything the kernel does not take and on a failed launch."""
     check_columns(name, tgt, src)
     _check_tiles(name, tiles, tgt.device)
     nt, ns = tgt.shape[1], src.shape[1]
     out = torch.empty((n_out, nt), dtype=torch.float32, device=tgt.device)
     if nt == 0:
         return out
-    # The triangle's units alone where K2 (one output) culls the square form.
-    units, n_units, per, rows = unit_table(nt, ns, cull and square and n_out == 1, tgt.device)
+    units, n_units, per, rows = unit_table(nt, ns, units_triangle(n_out, cull, square),
+                                           tgt.device)
     scratch = torch.empty((rows, n_out, nt), dtype=torch.float32, device=tgt.device)
     # The units' counts, one word per target block, zeroed by the launcher.
     sync = torch.empty(math.ceil(nt / BLOCK), dtype=torch.int64, device=tgt.device)
     host = (ctypes.c_float * len(c))(*c)
-    fn = wake_library()[name]
+    fn = unit_library()[name]
     with torch.cuda.device(tgt.device):
         stream = torch.cuda.current_stream(tgt.device).cuda_stream
         rc = fn(tgt.data_ptr(), nt, src.data_ptr(), ns, int(cull), int(square),

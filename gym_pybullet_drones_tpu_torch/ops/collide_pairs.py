@@ -9,10 +9,11 @@ equal masses) in the squared-distance, rsqrt form of the TPU kernel.
 
 ``make_collide`` builds ``resolve(pos, vel, src_pos=None, src_vel=None)``
 and its column entry ``resolve.cols(x, y, z, vx, vy, vz, src=None)``, which
-always returns the deltas. CUDA tensors launch K4 (``csrc/pair_kernels.cu``,
-``collide_pairs``); CPU tensors run ``collide_plain``. ``z_sort`` sorts the
-fleet by z so that the kernel skips tiles whose z intervals lie more than
-min_dist apart, and scatters the corrections back.
+always returns the deltas. CUDA tensors launch K4
+(``csrc/wake_pair_kernels.cu``, ``collide_pairs``: the contact-only instance
+of the unit kernel of K2 and K5); CPU tensors run ``collide_plain``.
+``z_sort`` sorts the fleet by z so that the kernel skips tiles whose z
+intervals lie more than min_dist apart, and scatters the corrections back.
 """
 
 import torch
@@ -51,7 +52,7 @@ def collide_cuda(tgt: torch.Tensor, src: torch.Tensor, c: _pairs.PairConsts,
     """Launch K4 on stacked float32 CUDA columns; ``cull`` takes them as
     sorted by z (the contact cull reads z alone, the same in the square and
     the rectangular form). ``collide_cuda.launches`` counts the launches."""
-    out = _pairs.launch(NAME, tgt, src, c, cull, tiles)
+    out = _pairs.launch_units(NAME, tgt, src, c, 6, cull, False, tiles)
     collide_cuda.launches += 1
     return out
 
@@ -69,7 +70,7 @@ def make_collide(params, max_push: float = 0.01, return_delta: bool = False, z_s
     card, whose kernel is built here."""
     device = resolve_device(device)
     if device.type == "cuda":
-        _pairs.library()
+        _pairs.unit_library()
     c = _pairs.pair_consts(params, max_push)
 
     def resolve_cols(x, y, z, vx, vy, vz, src=None):

@@ -40,16 +40,25 @@ MASKED_NAME = "downwash_masked"
 
 def wake_terms(t, s, c: _pairs.PairConsts):
     """The wake magnitude of each source on each target (subtracted by the
-    pass); ``t`` (3, ...) targets and ``s`` (3, ...) sources broadcast."""
+    pass); ``t`` (3, ...) targets and ``s`` (3, ...) sources broadcast.
+
+    Where float32 beta = c2 dz + c3 is 0 (dz = 0.6875 m for the CF2X) the
+    term is exactly 0: the limit of the reference simulator's Gaussian
+    exp(-dxy^2 / (2 beta^2)) as beta goes to 0 (BaseAviary.py:798-811). The
+    JAX package puts beta^2 = 1 there, a Gaussian 1 m wide; this is the
+    port's one deliberate deviation from it, and it makes the live masks'
+    cone cull (``ops/spatial.py``), which reads beta -> 0 as an ever narrower
+    Gaussian, exact."""
     dx, dy, dz = s[0] - t[0], s[1] - t[1], s[2] - t[2]
     dxy2 = dx * dx + dy * dy
     above = dz > 0
     safe_dz = torch.where(above, dz, 1.0)
     alpha = _pairs._div(c.K, safe_dz * safe_dz)
     beta = c.c2 * safe_dz + c.c3
-    safe_beta2 = torch.where(torch.abs(beta) > 1e-12, beta * beta, 1.0)
+    spread = torch.abs(beta) > 1e-12
+    safe_beta2 = torch.where(spread, beta * beta, 1.0)
     mag = alpha * torch.exp(-0.5 * dxy2 / safe_beta2)
-    return torch.where(above & (dxy2 < 100.0), mag, 0.0)
+    return torch.where(above & (dxy2 < 100.0) & spread, mag, 0.0)
 
 
 def downwash_plain(tgt: torch.Tensor, src: torch.Tensor, c: _pairs.PairConsts) -> torch.Tensor:
@@ -77,7 +86,7 @@ def make_downwash(params, z_sort=None, device=None):
     are cast to float32 and the result back to their dtype."""
     device = resolve_device(device)
     if device.type == "cuda":
-        _pairs.wake_library()
+        _pairs.unit_library()
     c = _pairs.pair_consts(params)
 
     def dw_cols(x, y, z, src=None):

@@ -74,7 +74,7 @@ def make_interact(params, max_push: float = 0.01, z_sort=None, device=None):
     built here."""
     device = resolve_device(device)
     if device.type == "cuda":
-        _pairs.wake_library()
+        _pairs.unit_library()
     c = _pairs.pair_consts(params, max_push)
 
     def interact_cols(x, y, z, vx, vy, vz):

@@ -14,8 +14,8 @@ axis-aligned bounding box is reduced from the coordinate columns, and each
 * contact-live only if the boxes approach within the collision diameter on
   every axis.
 
-The masks are conservative (they never cull a contributing pair, but for the
-cone cull's one exception at ``_CONE_Q``), so they hold for any permutation; sorting by z or by a Morton key only gathers the
+The masks are conservative (they never cull a contributing pair), so they
+hold for any permutation; sorting by z or by a Morton key only gathers the
 live pairs into few tiles.
 
 Sizes. A tile is a block's worth of targets (``bt``) or sources (``bs``); a
@@ -32,10 +32,10 @@ from gym_pybullet_drones_tpu_torch.ops._pairs import _div
 # x = -87.3 and flushes to 0 below -103.3; alpha = K/dz^2 can multiply the
 # Gaussian back up by at most ~exp(28) for dz >= 1e-6, so -0.5 q < -(103+60)
 # guarantees an exact-zero float32 contribution, with a 2x margin on top.
-# One exception, kept from the JAX package: where float32 beta is exactly 0
-# (dz = 0.6875 m for the CF2X) the pair term's guard puts beta^2 = 1, a
-# Gaussian 1 m wide, and a tile pair that the cone culled can hold such a
-# pair (scripts/torch_cone_guard.py finds them; ROADMAP Queue 3).
+# The bits are the JAX package's word for word. Where float32 beta is
+# exactly 0 (dz = 0.6875 m for the CF2X) the JAX pair term puts beta^2 = 1, a
+# Gaussian 1 m wide that a culled tile pair can hold; the port's pair term is
+# 0 there (ops/downwash_pairs.wake_terms), so the cull is exact.
 _CONE_Q = 2.0 * (103.3 + 60.0)
 
 # Default source tile: what the masked kernels stage through shared memory at

@@ -5,8 +5,9 @@
 package's layout at this boundary: a dict of (E,) float32 columns keyed by
 ``SOA_KEYS``, and the action a dict of (E,) columns ``ax, ay, az, amag``.
 
-* On CUDA tensors it launches K1 (``csrc/velocity_rollout.cu``, one thread
-  per env, the whole time loop in registers), which replaces the TPU kernel
+* On CUDA tensors it launches K1 (``csrc/velocity_rollout.cu``: each env
+  laid over a group of ``choose_lanes(E)`` lanes of a warp, the whole time
+  loop in registers), which replaces the TPU kernel
   ``make_velocity_rollout_pallas`` (gym_pybullet_drones_tpu/ops/
   velocity_pallas.py). A failed build or launch raises.
 * On CPU tensors it runs the plain version, a Python loop of
@@ -28,6 +29,24 @@ from gym_pybullet_drones_tpu_torch.ops.velocity_soa import (
 )
 
 KERNEL = "velocity_rollout"
+# The lane counts an env can be laid over (csrc/velocity_rollout.cu): no
+# stage of the step has more than four independent operations.
+LANES = (1, 2, 4)
+# Warps the launcher lets the lanes add up to: about two for each of an
+# H100's 132 x 4 schedulers (a constant, so that the choice never depends on
+# the card; the result does not depend on it either).
+_K1_WARPS = 1024
+
+
+def choose_lanes(E: int) -> int:
+    """The lanes K1 lays each of ``E`` envs over: the most of ``LANES`` with
+    which the grid stays within ``_K1_WARPS`` warps, at least one. A warp
+    alone takes as long as one per scheduler, so more lanes shorten each
+    env's chain until the schedulers fill; past about two warps a scheduler
+    the lanes' repeated serial work costs more than they save (PERF.md, the
+    scaling line)."""
+    fit = [L for L in LANES if E * L <= 32 * _K1_WARPS]
+    return max(fit, default=1)
 
 
 def velocity_rollout_plain(consts, ctrl_dt, pyb_dt, n_substeps, speed_limit, num_steps,
@@ -61,15 +80,18 @@ def _library():
     """K1's C entry point, built at first use and typed once."""
     fn = ctypes.CDLL(_build.build(KERNEL)).velocity_rollout
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def velocity_rollout_cuda(consts, ctrl_dt, pyb_dt, n_substeps, speed_limit, num_steps,
-                          soa: Dict[str, torch.Tensor], action: Dict[str, torch.Tensor]):
+                          soa: Dict[str, torch.Tensor], action: Dict[str, torch.Tensor],
+                          lanes=None):
     """Launch K1 on CUDA float32 columns; ``velocity_rollout_cuda.launches``
-    counts the launches."""
+    counts the launches. ``lanes``: the lanes an env is laid over, one of
+    ``LANES`` (``choose_lanes(E)`` by default); the result is the same bit
+    for bit whatever it is, so only the tests and timings set it."""
     cols = [soa[k] for k in SOA_KEYS] + [action[k] for k in ACTION_KEYS]
     E = cols[0].shape[0] if cols[0].ndim == 1 else -1
     device = cols[0].device
@@ -83,6 +105,9 @@ def velocity_rollout_cuda(consts, ctrl_dt, pyb_dt, n_substeps, speed_limit, num_
                              f"{tuple(x.shape)}")
     if n_substeps < 0 or num_steps < 0:
         raise ValueError("n_substeps and num_steps must be non-negative")
+    lanes = choose_lanes(E) if lanes is None else lanes
+    if lanes not in LANES:
+        raise ValueError(f"K1 lays an env over one of {LANES} lanes; got {lanes}")
     packed = torch.stack(cols)  # (30, E), contiguous
     out = torch.empty((len(SOA_KEYS), E), dtype=torch.float32, device=device)
     if not (packed.is_contiguous() and out.is_contiguous()):
@@ -92,7 +117,7 @@ def velocity_rollout_cuda(consts, ctrl_dt, pyb_dt, n_substeps, speed_limit, num_
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(packed.data_ptr(), out.data_ptr(), E, ctypes.addressof(host), len(host),
-                n_substeps, num_steps, stream)
+                n_substeps, num_steps, lanes, stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
     velocity_rollout_cuda.launches += 1

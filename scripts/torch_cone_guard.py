@@ -1,14 +1,15 @@
-"""Find the pairs that the cone cull of the masked wake passes drops although
-their pair term is not zero (PyTorch port; needs a CUDA card).
+"""Check that the cone cull of the masked wake passes drops no pair whose
+term is not zero (PyTorch port; needs a CUDA card).
 
-The wake's pair term guards its division: where float32 beta = c2 dz + c3 is
-exactly 0 (dz = 0.6875 m for the CF2X), it puts beta^2 = 1, a Gaussian 1 m
-wide, in both packages. The cone cull of ``ops/spatial.py`` reads beta -> 0
-as an ever narrower Gaussian and may drop the tile pair that holds such a
-pair. This script runs the sorted z backend with contact for three control
-steps on chip_smoke.py's fleet of co-planar contact pairs beside unique-z
-towers, holds every K6 launch against the unmasked plain pass on the same
-inputs, and prints each term that a dead sub-slice held.
+The cone cull of ``ops/spatial.py`` reads beta = c2 dz + c3 -> 0 as an ever
+narrower Gaussian. The JAX package's pair term puts beta^2 = 1 where float32
+beta is exactly 0 (dz = 0.6875 m for the CF2X), a Gaussian 1 m wide that a
+culled tile pair can hold; the port's term is 0 there, so the cull is exact.
+This script runs the sorted z backend with contact for three control steps
+on chip_smoke.py's fleet of co-planar contact pairs beside unique-z towers
+(whose levels drift through that dz), holds every K6 launch against the
+unmasked plain pass on the same inputs, prints each term that a dead
+sub-slice held, and exits non-zero if there is any.
 
     python3 scripts/torch_cone_guard.py
 """
@@ -79,7 +80,8 @@ def main():
     finally:
         _pairs.launch_masked = launch_masked
     print(f"{seen[0]} K6 launches held against the unmasked plain pass; {seen[1]} dropped terms")
+    return 1 if seen[1] else 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

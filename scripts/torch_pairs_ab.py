@@ -1,7 +1,9 @@
-"""Time the pair kernels K2 and K5 per pass on the dense swarm's fleets, to
-compare two versions of the PyTorch port on one card.
+"""Time the pair kernels K2, K4 and K5 per pass on the dense swarm's fleets,
+to compare two versions of the PyTorch port on one card.
 
-    PYTHONPATH=<tree> python3 scripts/torch_pairs_ab.py LABEL
+    PYTHONPATH=<tree> python3 scripts/torch_pairs_ab.py LABEL [KERNEL ...]
+
+KERNEL is K2, K4 or K5 (default: all three).
 
 Times the kernels of the ``gym_pybullet_drones_tpu_torch`` package found on
 the path, so run it once per tree, in turns (A, B, B, A), in one run on one
@@ -39,6 +41,7 @@ from torch.profiler import ProfilerActivity, profile
 from gym_pybullet_drones_tpu_torch.core.dynamics import init_kin_state
 from gym_pybullet_drones_tpu_torch.envs.base import TASK_VELOCITY, AviaryConfig, build_params
 from gym_pybullet_drones_tpu_torch.ops import _pairs
+from gym_pybullet_drones_tpu_torch.ops.collide_pairs import collide_cuda
 from gym_pybullet_drones_tpu_torch.ops.downwash_pairs import downwash_cuda
 from gym_pybullet_drones_tpu_torch.ops.interact_pairs import interact_cuda
 from gym_pybullet_drones_tpu_torch.ops.swarm_soa import (
@@ -135,6 +138,7 @@ def main():
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     params = build_params(AviaryConfig(task=TASK_VELOCITY, pyb_freq=240, ctrl_freq=48), dev)
     c = _pairs.pair_consts(params)
+    kernels = sys.argv[2:] or ["K2", "K4", "K5"]
     out = {}
     for name, cols in fleets(dev, params):
         out[name] = {}
@@ -142,9 +146,11 @@ def main():
             t = _pairs.sort_by_z(cols)[0] if sort else cols
             t3 = t[:3].contiguous()
             passes = {"K2": lambda: downwash_cuda(t3, t3, c, cull=sort, square=True),
+                      "K4": lambda: collide_cuda(t, t, c, cull=sort),
                       "K5": lambda: interact_cuda(t, c, cull=sort)}
             out[name]["z-sorted" if sort else "unsorted"] = {
-                k: {"events": event_ms(fn), "device": device_ms(fn)} for k, fn in passes.items()}
+                k: {"events": event_ms(passes[k]), "device": device_ms(passes[k])}
+                for k in kernels}
     print(json.dumps({"label": sys.argv[1] if len(sys.argv) > 1 else "",
                       "device": torch.cuda.get_device_name(0), "smi": smi, "ms": out}))
 

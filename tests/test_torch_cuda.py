@@ -1,6 +1,6 @@
-"""Kernels K1 (csrc/velocity_rollout.cu), K2, K5 (csrc/wake_pair_kernels.cu),
-K4 (csrc/pair_kernels.cu) and K3, K6 (csrc/masked_pair_kernels.cu) against
-their plain PyTorch versions on the card. Needs a CUDA card and nvcc: run on the GPU machine with
+"""Kernels K1 (csrc/velocity_rollout.cu), K2, K4, K5 (csrc/wake_pair_kernels.cu)
+and K3, K6 (csrc/masked_pair_kernels.cu) against their plain PyTorch versions
+on the card. Needs a CUDA card and nvcc: run on the GPU machine with
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -57,6 +57,20 @@ def test_k1_matches_plain_version(cuda, E, T):
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-5, msg=k)
 
 
+@pytest.mark.parametrize("lanes", tro.LANES)
+@pytest.mark.parametrize("E", [33, 1000, 4097])
+def test_k1_equals_plain_version_bit_for_bit_at_every_lane_count(cuda, E, lanes):
+    """Each lane of an env's group runs the plain version's operations in its
+    order, so K1 equals its plain version bit for bit whatever the lanes;
+    ragged E (not a multiple of 32 / lanes) included."""
+    args, soa, act = _case(cuda, E)
+    got = tro.velocity_rollout_cuda(*args, 8, soa, act, lanes=lanes)
+    want = tro.velocity_rollout_plain(*args, 8, soa, act)
+    torch.cuda.synchronize()
+    for k in tsoa.SOA_KEYS:
+        assert torch.equal(got[k], want[k]), k
+
+
 def test_k1_zero_steps_is_identity(cuda):
     args, soa, act = _case(cuda, 64)
     got = tro.velocity_rollout_cuda(*args, 0, soa, act)
@@ -80,9 +94,11 @@ def test_k1_rejects_what_it_does_not_take(cuda):
         tro.velocity_rollout_cuda(*args, 2, soa, {k: v[:10] for k, v in act.items()})
     with pytest.raises(ValueError, match="CUDA"):
         tro.velocity_rollout_cuda(*args, 2, soa, {k: v.cpu() for k, v in act.items()})
+    with pytest.raises(ValueError, match="lanes"):
+        tro.velocity_rollout_cuda(*args, 2, soa, act, lanes=3)
 
 
-# ---------------- K2, K5 (csrc/wake_pair_kernels.cu), K4 (csrc/pair_kernels.cu) ----------------
+# ---------------- K2, K4, K5 (csrc/wake_pair_kernels.cu) ----------------
 
 
 def _pair_cloud(device, n, n_src=None, seed=11):
@@ -207,10 +223,26 @@ def test_k5_contact_of_one_lane_in_a_warp(cuda, sort):
 
 
 @pytest.mark.parametrize("sort", [False, True])
+def test_k4_contact_of_one_lane_in_a_warp(cuda, sort):
+    """K5's one-lane fleet through K4: drones 37 and 3000 alone in touch, each
+    the one lane of its warp that passes the vote; K4 equals its plain
+    version bit for bit (one partner each) and moves only those two."""
+    c = _pair_consts()
+    pos, vel = _spread_fleet(4096)
+    pos[3000] = pos[37] + np.array([0.06, 0.0, 0.03], np.float32)
+    cols = torch.as_tensor(np.concatenate([pos, vel], 1).T.copy(), device=cuda)
+    if sort:
+        cols, _ = tpairs.sort_by_z(cols)
+    got = tco.collide_cuda(cols, cols, c, cull=sort)
+    assert int((got[:3].abs().amax(0) > 0).sum()) == 2
+    assert torch.equal(got, tco.collide_plain(cols, cols, c))
+
+
+@pytest.mark.parametrize("sort", [False, True])
 @pytest.mark.parametrize("n,n_src", [(4097, None), (16384, None), (4096, 16384)])
 def test_k2_k5_passes_repeat_bit_for_bit(cuda, n, n_src, sort):
     """The units' partial sums are added in a fixed order: a second pass
-    equals the first."""
+    equals the first, for K2, K4 and K5."""
     c = _pair_consts()
     tgt, src = _pair_cloud(cuda, n, n_src)
     square = n_src is None
@@ -218,6 +250,8 @@ def test_k2_k5_passes_repeat_bit_for_bit(cuda, n, n_src, sort):
         tgt, src = _sorted(tgt, src, square)
     t3, s3 = tgt[:3].contiguous(), src[:3].contiguous()
     runs = [tdw.downwash_cuda(t3, s3, c, cull=sort, square=square) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    runs = [tco.collide_cuda(tgt, src, c, cull=sort) for _ in range(2)]
     assert torch.equal(runs[0], runs[1])
     if square:
         runs = [tia.interact_cuda(tgt, c, cull=sort) for _ in range(2)]
@@ -227,9 +261,9 @@ def test_k2_k5_passes_repeat_bit_for_bit(cuda, n, n_src, sort):
 @pytest.mark.parametrize("sort", [False, True])
 @pytest.mark.parametrize("n", [4096, 16384])
 def test_k4_equals_its_plain_version_bit_for_bit(cuda, n, sort):
-    """K4 is built with -fmad=false and nearly every drone of the square
-    cloud has at most one partner, whose term the two versions round alike:
-    it equals its plain version. (The rectangular form's targets, 1 cm from
+    """K4's contact term rounds each step as the plain version does and
+    nearly every drone of the square cloud has at most one partner: it
+    equals its plain version, sorted (most units culled) or not. (The rectangular form's targets, 1 cm from
     their own sources, meet two or three partners, whose order of addition
     differs; it is held at atol 1e-6 above.)"""
     c = _pair_consts()
@@ -239,6 +273,29 @@ def test_k4_equals_its_plain_version_bit_for_bit(cuda, n, sort):
     got = tco.collide_cuda(cols, cols, c, cull=sort)
     assert float(got[:3].abs().max()) > 0
     assert torch.equal(got, tco.collide_plain(cols, cols, c))
+
+
+def test_wake_is_zero_at_zero_beta_in_every_pass(cuda):
+    """A drone 0.6875 m right under another (float32 beta = c2 dz + c3
+    exactly 0), far from the rest of a lattice: its wake is exactly 0 in K2,
+    K3, K5 and K6, as in the plain version; 0.75 m under, it is K / dz^2."""
+    c = _pair_consts()
+    p = tbase.build_params(tbase.AviaryConfig(), "cpu")
+    pos, vel = _spread_fleet(512)
+    for dz, zero in ((0.6875, True), (0.75, False)):
+        pos[0], pos[1] = (100.0, 0.0, 1.0), (100.0, 0.0, 1.0 + dz)
+        cols = torch.as_tensor(np.concatenate([pos, vel], 1).T.copy(), device=cuda)
+        t3 = cols[:3].contiguous()
+        assert (float(c.c2 * (t3[2, 1] - t3[2, 0]) + c.c3) == 0.0) == zero
+        grid = tpairs.TileGrid(256, 256, 8, 2, False)
+        words = tsp.subtile_packed_mask(cols[0], cols[1], cols[2], 256, 256, min_dist=c.min_dist,
+                                        params=p, cone=True, sub=8)
+        wakes = {"plain": tdw.downwash_plain(t3, t3, c), "K2": tdw.downwash_cuda(t3, t3, c),
+                 "K3": tdw.downwash_masked_cuda(t3, t3, words, grid, c),
+                 "K5": tia.interact_cuda(cols, c)[0],
+                 "K6": tia.interact_masked_cuda(cols, cols, words, grid, c)[0]}
+        for name, w in wakes.items():
+            assert float(w[0]) == 0.0 if zero else float(w[0]) < -0.1, (name, dz, float(w[0]))
 
 
 def test_pair_factories_sorted_match_unsorted(cuda):

@@ -291,9 +291,9 @@ def test_slice_gates_read_both_forms_alike():
 def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
     """A built library is named by a hash of its source, of every csrc/ file
     it includes and of its own flags: a change to pair_terms.cuh renames (so
-    rebuilds) the three pair kernel libraries and leaves K1's alone, and a
-    change to one source's flags renames that library alone. K2/K5's and
-    K3/K6's sources contract multiply-adds, K1's and K4's do not. Needs no
+    rebuilds) the two pair kernel libraries and leaves K1's alone, and a
+    change to one source's flags renames that library alone. K2/K4/K5's
+    and K3/K6's sources contract multiply-adds, K1's does not. Needs no
     compiler."""
     import os
     import shutil
@@ -303,7 +303,7 @@ def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", str(csrc))
-    names = ("velocity_rollout", _pairs.KERNEL, _pairs.WAKE_KERNEL, _pairs.MASKED_KERNEL)
+    names = ("velocity_rollout", _pairs.UNIT_KERNEL, _pairs.MASKED_KERNEL)
     for name in names[1:]:
         assert [os.path.basename(p) for p in _build._sources(str(csrc / f"{name}.cu"))] == [
             f"{name}.cu", "pair_terms.cuh"]
@@ -313,8 +313,8 @@ def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
     after = [_build._paths(n)[1] for n in names]
     assert after[0] == before[0] and all(a != b for a, b in zip(after[1:], before[1:]))
     flags = _build.NVCC_FLAGS
-    assert all("-fmad=true" in flags[n] for n in names[2:])
-    assert all("-fmad=false" in flags[n] for n in names[:2])
+    assert all("-fmad=true" in flags[n] for n in names[1:])
+    assert "-fmad=false" in flags[names[0]] and set(flags) == set(names)
     for i, name in enumerate(names):
         with monkeypatch.context() as m:
             m.setitem(flags, name, flags[name] + ("-lineinfo",))

@@ -5,14 +5,17 @@ kernels in interpret mode, square and rectangular, z-sorted and not.
 Tolerances are tests/test_soa.py's: the wake at rtol 1e-4 plus atol
 1e-4 * max(1, max|w|) (float32 sums in another order), positions and
 velocities after the contact deltas at atol 1e-6. Also the kernels'
-schedules, which are host code: K4's source split and K2's and K5's work
-units; and the pair gates by which chip_smoke.py prices its bounds."""
+schedules, which are host code: the work units of K2, K4 and K5; the wake
+term at float32 beta = 0, where the port deviates from the JAX package; and
+the pair gates by which chip_smoke.py prices its bounds."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from gym_pybullet_drones_tpu.core.aero import downwash_forces_body_z as jax_downwash
 from gym_pybullet_drones_tpu.core.params import drone_params as jax_drone_params
 from gym_pybullet_drones_tpu.ops.collide_pallas import make_collide_pallas
 from gym_pybullet_drones_tpu.ops.downwash_pallas import make_downwash_pallas
@@ -20,7 +23,7 @@ from gym_pybullet_drones_tpu.ops.interact_pallas import make_interact_pallas
 from gym_pybullet_drones_tpu_torch.core.params import drone_params
 from gym_pybullet_drones_tpu_torch.ops import _pairs
 from gym_pybullet_drones_tpu_torch.ops.collide_pairs import make_collide
-from gym_pybullet_drones_tpu_torch.ops.downwash_pairs import make_downwash
+from gym_pybullet_drones_tpu_torch.ops.downwash_pairs import make_downwash, wake_terms
 from gym_pybullet_drones_tpu_torch.ops.interact_pairs import make_interact
 
 TILE = dict(bt=256, bs=256, interpret=True)
@@ -140,17 +143,6 @@ def test_pair_passes_keep_dtype_and_order():
         np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4, atol=1e-6)
 
 
-def test_source_split_covers_every_tile():
-    """K4's source split: no empty chunk, every tile covered, and enough
-    blocks to fill an H100 where the tiles allow, whatever card is at hand."""
-    for nt, ns in ((1000, 1000), (4096, 4096), (16384, 16384), (4096, 16384), (256, 1024),
-                   (1, 1), (33, 70000)):
-        split, per = _pairs.source_split(nt, ns)
-        tiles = -(-ns // _pairs.BLOCK)
-        assert split * per >= tiles > (split - 1) * per
-        assert split == tiles or -(-nt // _pairs.BLOCK) * split >= 4 * 132
-
-
 def _live_tiles(nt, ns, triangle):
     """(block, tile) pairs that K2 / K5 must evaluate, by brute force: all of
     them, or under the square wake cull those whose last source index lies
@@ -167,7 +159,7 @@ UNIT_SHAPES += [(4096, 16384, False), (33, 70000, False)]
 
 @pytest.mark.parametrize("nt,ns,triangle", UNIT_SHAPES)
 def test_pair_units_cover_every_live_tile_once(nt, ns, triangle):
-    """K2's and K5's work units: every live tile in exactly one unit and no
+    """K2's, K4's and K5's work units: every live tile in exactly one unit and no
     other tile; a block's units in tile order, slots 0, 1, ... with the
     block's unit count; at most ``UNIT_SLOTS`` a block; every block has a
     unit (an empty one writes its zeros); the list is a function of the
@@ -196,6 +188,39 @@ def test_pair_units_pin_the_shape_rule():
     assert (len(units), per, int(units[:, 3].max())) == (256, 1, 16)
     assert (len(_pairs.pair_units(16384, 16384, True)[0]), _pairs.pair_units(16384, 16384)[1]) == (1056, 2)
     assert len(_pairs.pair_units(16384, 16384)[0]) == 2048
+
+
+def test_k4_runs_on_the_units_of_k5():
+    """K4's work units at the main path's shapes: every unit of the block's
+    tiles, sorted or not (only K2's square wake cull lists a triangle), so N
+    = 4096 unsorted has 256 units of one tile and N = 16384 z-sorted 2048
+    units of two."""
+    for n, sort, want in ((4096, False, (256, 1)), (16384, True, (2048, 2))):
+        triangle = _pairs.units_triangle(6, sort, True)
+        units, per = _pairs.pair_units(n, n, triangle)
+        assert not triangle and (len(units), per) == want
+        k5 = _pairs.pair_units(n, n, _pairs.units_triangle(7, sort, True))
+        assert np.array_equal(units, k5[0])
+    assert _pairs.units_triangle(1, True, True) and not _pairs.units_triangle(1, True, False)
+
+
+def test_wake_term_is_zero_at_zero_beta_where_jax_keeps_a_gaussian():
+    """The port's one deviation from the JAX package: where float32 beta =
+    c2 dz + c3 is 0 (dz = 0.6875 m) the plain wake term is exactly 0, the
+    limit of the reference simulator's Gaussian; the JAX package's term, as
+    its source writes it and evaluated op by op (no jit, so no contraction
+    of c2 dz + c3 into an FMA), puts beta^2 = 1 there: about 0.16 N."""
+    jp, tp = _params()
+    pos = np.array([[0.0, 0.0, 1.0], [0.1, 0.0, 1.6875]], np.float32)
+    c = _pairs.pair_consts(tp)
+    t = _t(pos).T
+    assert float(c.c2 * (t[2, 1] - t[2, 0]) + c.c3) == 0.0
+    term = wake_terms(t[:, :, None], t[:, None, :], c)
+    assert float(term.abs().max()) == 0.0
+    assert float(make_downwash(tp, device="cpu")(_t(pos)).abs().max()) == 0.0
+    with jax.disable_jit():
+        want = np.asarray(jax_downwash(jnp.asarray(pos), jp))
+    assert want[0] < -0.1 and want[1] == 0.0
 
 
 def test_pair_factories_name_their_device():

@@ -163,25 +163,27 @@ def test_morton_and_sort_keys_match_jax(seed):
 
 
 def test_cone_cull_at_zero_beta_is_the_jax_packages():
-    """The one exception to the masks' exactness, kept from the JAX package
-    (ROADMAP Queue 3): where float32 beta = c2 dz + c3 is exactly 0, at
-    dz = 0.6875 m, the pair term puts beta^2 = 1 and is not zero, while the
-    cone cull reads beta -> 0 as an ever narrower Gaussian and drops the
-    tile pair, in both packages alike."""
+    """The cone cull where float32 beta = c2 dz + c3 is exactly 0, at
+    dz = 0.6875 m: the masks stay the JAX package's word for word, cone on
+    and off; the port's pair term is exactly 0 there (its one deviation from
+    the JAX package, whose term puts beta^2 = 1: ROADMAP Queue 3); so no pair
+    with a non-zero term lies in the tile pair that the cone culls."""
     jp, tp = jax_drone_params(), drone_params(device="cpu")
     cols = [np.array(c, np.float32) for c in
             ([0.0, 0.1, 3.0, 3.1], [0.0, 0.0, 0.0, 0.0], [1.0, 1.0, 1.6875, 1.6875])]
     x, y, z = _t(cols)
     c = _pairs.pair_consts(tp)
     assert float(c.c2 * (z[2] - z[0]) + c.c3) == 0.0
-    term = wake_terms(torch.stack([x[:2], y[:2], z[:2]])[:, :, None],
-                      torch.stack([x[2:], y[2:], z[2:]])[:, None, :], c)
-    assert float(term.min()) > 1e-3
+    pos = torch.stack([x, y, z])
+    term = wake_terms(pos[:, :, None], pos[:, None, :], c)  # (targets, sources)
+    assert float(term[:2, 2:].abs().max()) == 0.0
     for cone, live in ((True, 0), (False, 1)):
         got = tsp.wake_live_mask(x, y, z, 2, 2, params=tp, cone=cone)
         want = jsp.wake_live_mask(*_j(cols), 2, 2, params=jp, cone=cone)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         assert int(got[0, 1]) == live
+        gate = got.bool().repeat_interleave(2, 0).repeat_interleave(2, 1)
+        assert not bool(((term != 0) & ~gate).any())
 
 
 @pytest.mark.parametrize("cone", [False, True])
