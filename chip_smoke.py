@@ -93,7 +93,22 @@ Phases, one or more lines each:
      versions; the blocks the padding skip drops; the mask and compaction
      ops per pass; the overflow check's host read; the rebin; the binned and
      the sorted step per control step with phase 8's split;
-  9. one JSON line of kernels (``ms``: CUDA events around the wrapper's
+  9. the impulse contact path (core/contact.py, plain PyTorch ops, no
+     kernel of its own), float32, CF2X at 240 Hz: (a) the
+     one_d_rpm_hover_contact env (1 drone, ONE_D_RPM, 240/30 Hz, buffer 15,
+     collisions, impulse, RL landmarks) through make_batched_step at E =
+     4096 and (b) the one_d_rpm_multihover_contact env (2 drones, the exact
+     pair rows) at E = 2048, from the plane, 30 control steps (1 s) of
+     actions that lift each env off and land it at its own phase, the card
+     against the CPU on 512 of the envs at tests/test_soa.py:52-59's limits; (c)
+     scripts/impulse_ladder.py's lattice (10 cm pitch, +-5 mm, hovering at
+     1 m) through step_physics at N = 16384 (dense candidates; one control
+     period with the hash grid's candidates equal bit for bit) and 65536
+     (hash grid), finite with z in (-0.1, 5) m; for each cell the ms a
+     control step (events), kernels and memsets a control step, card-busy
+     ms and idle share (torch.profiler), the candidate build's ms and
+     env-steps/s or drone-steps/s;
+  10. one JSON line of kernels (``ms``: CUDA events around the wrapper's
      calls; ``device_ms``: the device time of its kernels and memsets under
      torch.profiler, null if not measured), the nvidia-smi line, and the
      result line.
@@ -113,15 +128,23 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from gym_pybullet_drones_tpu_torch.core.dynamics import init_kin_state
+from gym_pybullet_drones_tpu_torch.core.contact import (
+    NBR_MAX_N,
+    build_pair_candidates,
+    build_pair_candidates_binned,
+)
+from gym_pybullet_drones_tpu_torch.core.dynamics import init_kin_state, step_physics, substep_pyb
 from gym_pybullet_drones_tpu_torch.envs.base import (
+    TASK_HOVER,
+    TASK_MULTIHOVER,
     TASK_VELOCITY,
     AviaryConfig,
     build_ctrl_params,
     build_params,
     compute_obs,
+    hover_target_pos,
 )
-from gym_pybullet_drones_tpu_torch.envs.spec import Physics
+from gym_pybullet_drones_tpu_torch.envs.spec import ActionType, Physics
 from gym_pybullet_drones_tpu_torch.ops import _build, _pairs, collide_pairs, interact_pairs, spatial
 from gym_pybullet_drones_tpu_torch.ops.collide_pairs import (
     collide_cuda,
@@ -1516,6 +1539,182 @@ def phase8b_times(dev, c, params, ops):
             for name in MASKED}
 
 
+# Phase 9: the impulse contact path (core/contact.py), float32, CF2X, 240 Hz.
+IMPULSE_T = 30  # control steps of the contact checkpoints' envs at 30 Hz: 1 s
+IMPULSE_ENVS = {1: 4096, 2: 2048}  # drones an env -> envs (BASELINE config 5's width)
+IMPULSE_CPU_ENVS = 512  # envs are independent: the CPU runs 512 of them, evenly spread
+# The general step's float32 card-vs-CPU limits (tests/test_soa.py:52-59,
+# phase 4), held here over the whole second: the contact envs' actions are
+# open loop (ONE_D_RPM), and the drones of an env stay 22 cm apart.
+IMPULSE_LIMITS = dict(pos=1e-3, vel=2e-3, quat=1e-3)
+LADDER = ((16384, "dense"), (65536, "binned"))  # scripts/impulse_ladder.py's fleet
+LADDER_T = 3
+
+
+def contact_env(n, dtype, device):
+    """The one_d_rpm_hover_contact (n = 1) and one_d_rpm_multihover_contact
+    (n = 2) envs (tests/test_checkpoints.py:286-313), every drone starting on
+    the plane at the reference's spawn point (BaseAviary.py:194-197)."""
+    arm = 0.0397
+    init = tuple((4 * arm * i, 4 * arm * i, 0.0125) for i in range(n))
+    cfg = AviaryConfig(num_drones=n, task=TASK_HOVER if n == 1 else TASK_MULTIHOVER,
+                       action_type=ActionType.ONE_D_RPM, pyb_freq=240, ctrl_freq=30,
+                       action_buffer_size=15, collisions=True, contact_mode="impulse",
+                       dtype=dtype, initial_xyzs=init)
+    p, cp = build_params(cfg, device), build_ctrl_params(cfg, device)
+    step = make_batched_step(cfg, p, cp, hover_target_pos(cfg, p), reset_on_nan=False)
+    return step, batch_reset(cfg, p, IMPULSE_ENVS[n], device=device)
+
+
+def land_and_lift(n, E):
+    """(T, E, n, 1) ONE_D_RPM actions: each env rests, lifts off (+10 % thrust)
+    and lands again, at its own phase of a 0.8 s period."""
+    t = np.arange(IMPULSE_T)[:, None, None, None] / 24.0
+    phase = np.arange(E)[None, :, None, None] / E + np.arange(n)[None, None, :, None] * 0.25
+    return np.clip(1.5 * np.sin(2 * np.pi * (t + phase)), -1.0, 1.0)
+
+
+def run_contact_env(n, dtype, device, acts, sub=False):
+    """IMPULSE_T control steps of the contact env; returns the kinematic
+    leaves after each step (of the IMPULSE_CPU_ENVS envs that the CPU runs),
+    the CUDA-event ms of each step on the card, and a closure stepping on
+    from the final state. With ``sub`` only those envs run."""
+    step, state = contact_env(n, dtype, device)
+    every = slice(None, None, IMPULSE_ENVS[n] // IMPULSE_CPU_ENVS)
+    if sub:
+        state = state.map(lambda x: x[every])
+        acts = acts[:, every]
+    acts = torch.as_tensor(acts, dtype=getattr(torch, dtype), device=device)
+    trace, events = [], []
+    for a in acts:
+        if state.kin.pos.is_cuda:
+            events.append((torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)))
+            events[-1][0].record()
+        state, out = step(state, a)
+        if events:
+            events[-1][1].record()
+        trace.append({k: getattr(state.kin, k).clone() for k in IMPULSE_LIMITS})
+    if events:
+        torch.cuda.synchronize()
+    holder = [state]
+
+    def more():
+        holder[0], _ = step(holder[0], acts[-1])
+
+    trace = [{k: (v if sub else v[every]).double().cpu() for k, v in x.items()} for x in trace]
+    return trace, [a.elapsed_time(b) for a, b in events], more
+
+
+def impulse_profile(what, fn, ms, work, unit):
+    """Print a cell's line: event ms a control step, then one control step
+    under torch.profiler (kernels and memsets, busy ms, idle share)."""
+    prof = profile_steps(fn, 1)
+    if prof is None:
+        fail(f"{what}: torch.profiler saw no kernel on the card")
+    print(f"[9] {what}: {ms:.4f} ms a control step (CUDA events, median), "
+          f"{work / (ms / 1e3):.6g} {unit}/s; one control step under torch.profiler: "
+          f"{prof['kernels_per_step']:.0f} kernels and memsets, card busy {prof['busy_ms']:.4f} "
+          f"ms, idle share {1.0 - prof['busy_ms'] / ms:.4f} (1 - busy / event ms), host wall "
+          f"{prof['wall_ms']:.2f} ms", flush=True)
+
+
+def ladder_fleet(n, device, seed=0):
+    """scripts/impulse_ladder.py:38-47: 10 cm pitch (every lateral neighbor
+    pair in contact), +-5 mm jitter, hovering at 1 m."""
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(np.sqrt(n)))
+    g = np.stack(np.meshgrid(np.arange(side) * 0.10, np.arange(side) * 0.10),
+                 -1).reshape(-1, 2)[:n]
+    pos = np.concatenate([g, np.full((n, 1), 1.0)], 1).astype(np.float32)
+    pos[:, :2] += rng.uniform(-0.005, 0.005, (n, 2)).astype(np.float32)
+    quat = np.tile(np.array([[0.0, 0.0, 0.0, 1.0]], np.float32), (n, 1))
+    return init_kin_state(pos, quat, device=device)
+
+
+def check_ladder(what, kin):
+    if not all(bool(torch.isfinite(getattr(kin, k)).all()) for k in ("pos", "quat", "vel",
+                                                                      "ang_v")):
+        fail(f"{what}: the state is not finite")
+    z = kin.pos[:, 2]
+    lo, hi = float(z.min()), float(z.max())
+    if not (lo > -0.1 and hi < 5.0):  # scripts/impulse_ladder.py's sanity rule
+        fail(f"{what}: z in [{lo}, {hi}], outside (-0.1, 5) m")
+    return lo, hi
+
+
+def phase9_impulse(dev, params):
+    """The impulse contact path at full width: the contact envs through
+    make_batched_step on the card and on the CPU, the ladder fleet through
+    step_physics with both candidate sets."""
+    before = dict(pair_launches(), K1=velocity_rollout_cuda.launches)
+    for n in (1, 2):
+        E = IMPULSE_ENVS[n]
+        acts = land_and_lift(n, E)
+        what = f"({'a' if n == 1 else 'b'}) {n}-drone contact env E={E}"
+        card, times, more = run_contact_env(n, "float32", dev, acts)
+        cpu, _, _ = run_contact_env(n, "float32", "cpu", acts, sub=True)
+        gaps = {k: max(float((a[k] - b[k]).abs().max()) for a, b in zip(card, cpu))
+                for k in IMPULSE_LIMITS}
+        if not all(bool(torch.isfinite(x[k]).all()) for x in card for k in x):
+            fail(f"{what}: the state on the card is not finite")
+        zmin = min(float(x["pos"][..., 2].min()) for x in card)
+        fmt = lambda d: json.dumps({k: float(f"{v:.3g}") for k, v in d.items()})
+        print(f"[9] {what}, {IMPULSE_T} control steps (1 s): card vs CPU on every "
+              f"{E // IMPULSE_CPU_ENVS}th env, max over the steps {fmt(gaps)} (limits "
+              f"{json.dumps(IMPULSE_LIMITS)}); lowest z "
+              f"{zmin:.5f} m (the plane rows hold the drones at 0.0115)", flush=True)
+        check_kin_gaps(f"{what}: the card differs from the CPU", gaps, IMPULSE_LIMITS)
+        impulse_profile(what, more, statistics.median(times[1:]), E, "env-steps")
+    print("[9] (a), (b): no candidate build (the exact pair rows serve N <= 16)", flush=True)
+
+    r = float(params.collision_r)
+    rpm_of = lambda n: torch.full((n, 4), float(params.hover_rpm), device=dev)
+    for n, cands in LADDER:
+        what = f"(c) ladder N={n} ({cands} candidates)"
+        kin0, rpm = ladder_fleet(n, dev), rpm_of(n)
+        period = lambda kin: step_physics(kin, rpm, rpm, params, 1 / 240, 5, Physics.PYB,
+                                          collisions=True, contact_mode="impulse")[0]
+        auto = period(kin0)
+        torch.cuda.synchronize()
+        if n <= NBR_MAX_N:
+            # The dense solve against the binned one over one control period.
+            dense = build_pair_candidates(kin0.pos, r)
+            binned = build_pair_candidates_binned(kin0.pos, r)
+            kin = kin0
+            for _ in range(5):
+                kin = substep_pyb(kin, rpm, rpm, params, 1 / 240, collide=True,
+                                  contact_mode="impulse", pair_candidates=binned)
+            same = [k for k in ("pos", "quat", "vel", "ang_v", "rpy_rates")
+                    if torch.equal(getattr(kin, k), getattr(auto, k))]
+            rows = [torch.where(c[1], c[0], -1) for c in (dense, binned)]
+            print(f"[9] {what}: one control period with the hash grid's candidates equals "
+                  f"step_physics's (dense) bit for bit in {same}; in-band rows dense "
+                  f"{int(dense[1].sum())}, binned {int(binned[1].sum())}, slot for slot equal: "
+                  f"{bool(torch.equal(*rows))}", flush=True)
+            if len(same) != 5:
+                fail(f"{what}: the binned solve differs from the dense one")
+        build = build_pair_candidates if cands == "dense" else build_pair_candidates_binned
+        build(kin0.pos, r)
+        build_ms = statistics.median(event_ms(lambda: build(kin0.pos, r), 3))
+        holder = [kin0]
+
+        def more():
+            holder[0] = period(holder[0])
+
+        times = event_ms(more, LADDER_T)
+        lo, hi = check_ladder(what, holder[0])
+        print(f"[9] {what}: {1 + LADDER_T} control periods, finite, z in [{lo:.4f}, "
+              f"{hi:.4f}] m; candidate build {build_ms:.4f} ms (CUDA events, median of 3)",
+              flush=True)
+        impulse_profile(what, more, statistics.median(times), n, "drone-steps")
+        check_ladder(what, holder[0])
+    after = dict(pair_launches(), K1=velocity_rollout_cuda.launches)
+    rose = {k: after[k] - before[k] for k in after}
+    print(f"[9] K1-K6 launches during phase 9: {rose} (the impulse path runs no kernel of "
+          "its own: its rows are plain PyTorch ops)", flush=True)
+
+
 def main():
     # ---------------- 1. device ----------------
     if not torch.cuda.is_available():
@@ -1717,7 +1916,10 @@ def main():
     pair_times = phase8_times(dev, pc, params, ops)
     masked_times = phase8b_times(dev, pc, params, ops)
 
-    # ---------------- 9. result ----------------
+    # ---------------- 9. the impulse contact path ----------------
+    phase9_impulse(dev, params)
+
+    # ---------------- 10. result ----------------
     kernels = [{
         "name": f"K1 {KERNEL}", "route": "cuda",
         "source": "gym_pybullet_drones_tpu_torch/csrc/velocity_rollout.cu",
@@ -1753,7 +1955,7 @@ def main():
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
             fail(f"non-finite measurement for {k['name']}")
         if k["device_ms"] is None:
-            print(f"[9] {k['name']}: device_ms null, no torch.profiler trace held its kernels "
+            print(f"[10] {k['name']}: device_ms null, no torch.profiler trace held its kernels "
                   "(not measured)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,5 +1,6 @@
 """PyTorch and CUDA port of gym_pybullet_drones_tpu (slice 1: the VelocityAviary
-main path; slice 2: the coupled swarm's SoA, sorted and binned backends).
+main path; slice 2: the coupled swarm's SoA, sorted and binned backends;
+slice 3: the sequential-impulse contact solver, ``contact_mode="impulse"``).
 
 The JAX package ``gym_pybullet_drones_tpu`` stays the reference; this package
 never imports it or JAX. Entry points run on the CUDA card unless the caller

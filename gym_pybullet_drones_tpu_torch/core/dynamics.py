@@ -12,8 +12,9 @@ Two physics pipelines, both semi-implicit Euler at ``1/pyb_freq``:
   and a plane-contact clamp.
 
 Drone-drone and obstacle contact (``collisions=True``) is the Jacobi
-projection of ``core/collisions.py``; the sequential-impulse contact mode
-comes with slice 3.
+projection of ``core/collisions.py`` under ``contact_mode="clamp"``, and
+the sequential-impulse solver of ``core/contact.py`` (plane, pair and
+obstacle rows) under ``contact_mode="impulse"``.
 Small matrix-vector products are written out term by term, in the order of
 the JAX package's expressions.
 """
@@ -24,6 +25,7 @@ import torch
 
 from gym_pybullet_drones_tpu_torch._struct import TensorStruct
 from gym_pybullet_drones_tpu_torch.core import aero
+from gym_pybullet_drones_tpu_torch.core import contact as contact_solver
 from gym_pybullet_drones_tpu_torch.core.collisions import resolve_collisions
 from gym_pybullet_drones_tpu_torch.core.params import DroneParams
 from gym_pybullet_drones_tpu_torch.core.rotations import (
@@ -131,11 +133,14 @@ def substep_pyb(
     drag: bool = False,
     dw: bool = False,
     contact: bool = True,
+    contact_mode: str = "clamp",
     renormalize_quat: bool = True,
     dw_src_pos=None,
     dw_force_body_z=None,
     collide: bool = False,
     obstacles=None,
+    pair_candidates=None,
+    env_batched: bool = False,
 ) -> KinState:
     """One PyBullet-compatible substep with optional aero terms.
 
@@ -150,6 +155,12 @@ def substep_pyb(
     joins the force assembly exactly as the dense downwash term does.
     ``collide`` and ``obstacles`` add the drone-drone and obstacle contact
     pass of ``core/collisions.py`` after the plane clamp.
+
+    ``contact_mode="impulse"`` replaces the clamp and that pass with the
+    sequential-impulse solver (``core/contact.solve_contacts``), in Bullet's
+    phase order: contacts from the pre-integration pose, impulses on the
+    force-integrated velocities, then position and quaternion integration.
+    ``pair_candidates`` and ``env_batched`` go to the solver.
     """
     R = quat_to_matrix(state.quat)
     rpy = quat_to_euler_xyz(state.quat)
@@ -184,6 +195,19 @@ def substep_pyb(
     omega_body = _rot_t(R, state.ang_v)
     new_omega_body = _euler_rotational(torques_body, omega_body, params, dt)
     new_ang_v = _rot(R, new_omega_body)
+
+    if contact and contact_mode == "impulse":
+        new_vel, new_ang_v = contact_solver.solve_contacts(
+            state.pos, state.quat, new_vel, new_ang_v, params, dt, drone_drone=collide,
+            obstacles=obstacles, pair_candidates=pair_candidates, env_batched=env_batched)
+        new_omega_body = _rot_t(R, new_ang_v)
+        new_pos = state.pos + dt * new_vel
+        new_quat = integrate_quat(state.quat, new_omega_body, dt)
+        if renormalize_quat:
+            new_quat = quat_normalize(new_quat)
+        new_rpy_rates = _rot_t(quat_to_matrix(new_quat), new_ang_v)
+        return KinState(pos=new_pos, quat=new_quat, vel=new_vel, ang_v=new_ang_v,
+                        rpy_rates=new_rpy_rates)
 
     new_pos = state.pos + dt * new_vel
     new_quat = integrate_quat(state.quat, new_omega_body, dt)
@@ -232,6 +256,7 @@ def step_physics(
     collisions: bool = False,
     obstacles=None,
     contact_mode: str = "clamp",
+    env_batched: bool = False,
 ):
     """Advance ``n_substeps`` physics substeps under one control action.
 
@@ -241,11 +266,19 @@ def step_physics(
     and the action to carry as ``last_rpm`` next period. ``collisions`` adds
     drone-drone contact where the fleet has more than one drone;
     ``obstacles`` (an ``ObstacleSet``) adds contact with static bodies.
+    ``contact_mode`` is ``"clamp"`` or ``"impulse"``; DYN has no contact
+    (the reference never steps Bullet's world there).
+
+    With impulse contact, fleets above ``PAIR_GS_MAX_N`` drones take the
+    neighbor pair rows where the state is one world (``pos`` (N, 3)) or
+    ``env_batched`` says its leading axes are independent envs (the env step
+    sets it): their candidates are built once a control period, from the
+    period's first pose, by the dense build up to ``NBR_MAX_N`` drones and
+    by the hash grid above it. Any other leading axis takes the Jacobi pair
+    pass, as a direct JAX call with such a state does.
     """
-    if contact_mode != "clamp":
-        raise NotImplementedError(
-            f"contact_mode={contact_mode!r} (sequential-impulse contact) comes with "
-            "slice 3; only 'clamp' is ported")
+    if contact_mode not in ("clamp", "impulse"):
+        raise ValueError(f"unknown contact_mode {contact_mode!r}")
     if physics == Physics.DYN:
         for _ in range(n_substeps):
             state = substep_dyn(state, rpm, params, dt)
@@ -253,11 +286,27 @@ def step_physics(
                 state = state.replace(quat=quat_normalize(state.quat))
         return state, rpm
     flags = _PYB_FLAGS[physics]
-    collide = collisions and state.pos.shape[-2] > 1
+    n = state.pos.shape[-2]
+    collide = collisions and n > 1
+    env_batched = env_batched and state.pos.ndim > 2
+    pair_candidates = None
+    if (contact_mode == "impulse" and collide and n > contact_solver.PAIR_GS_MAX_N
+            and (state.pos.ndim == 2 or env_batched)):
+        r = params.collision_r
+        if n <= contact_solver.NBR_MAX_N:
+            pair_candidates = contact_solver.build_pair_candidates(state.pos, r)
+        elif not env_batched:
+            pair_candidates = contact_solver.build_pair_candidates_binned(state.pos, r)
+        else:
+            raise NotImplementedError(
+                f"impulse contact for env batches of more than {contact_solver.NBR_MAX_N} "
+                "drones an env (the hash-grid candidates with an env axis, ROADMAP item 14b)")
     for _ in range(n_substeps):
         state = substep_pyb(state, rpm, last_rpm, params, dt,
                             renormalize_quat=renormalize_quat, collide=collide,
-                            obstacles=obstacles, **flags)
+                            obstacles=obstacles, contact_mode=contact_mode,
+                            pair_candidates=pair_candidates, env_batched=env_batched,
+                            **flags)
         last_rpm = rpm
     return state, rpm
 

@@ -8,7 +8,9 @@ An env is a frozen ``AviaryConfig`` plus two plain functions
 
 Every tensor may carry leading env axes in front of the drone axis: ``step``
 reads the batch shape from ``state.step_count``, so the same function serves
-one env and a batch of them (``runtime/rollout.py``).
+one env and a batch of them (``runtime/rollout.py``). Each env is a world of
+its own, as under the JAX package's vmapped step: with impulse contact, an
+env of more than 16 drones takes the neighbor pair rows, env by env.
 
 Every behavioral detail (action pipelines, 20-dim state vector, reward /
 termination rules, the 0.5 s action buffer of RL observations) follows the
@@ -405,6 +407,7 @@ def step(
         state.kin, rpm, state.last_rpm, params, cfg.pyb_timestep,
         cfg.steps_per_ctrl, cfg.physics, renormalize_quat=cfg.renormalize_quat,
         collisions=cfg.collisions, obstacles=obstacles, contact_mode=cfg.contact_mode,
+        env_batched=len(batch) > 0,
     )
     state = state.replace(
         kin=kin,

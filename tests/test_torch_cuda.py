@@ -1,6 +1,7 @@
 """Kernels K1 (csrc/velocity_rollout.cu), K2, K4, K5 (csrc/wake_pair_kernels.cu)
 and K3, K6 (csrc/masked_pair_kernels.cu) against their plain PyTorch versions
-on the card. Needs a CUDA card and nvcc: run on the GPU machine with
+on the card, and the impulse contact solver (core/contact.py) on the card
+against the CPU. Needs a CUDA card and nvcc: run on the GPU machine with
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -518,3 +519,118 @@ def test_masked_kernels_reject_what_they_do_not_take(cuda):
         tia.interact_masked_cuda(tgt, src, mask, dense, c, torch.ones(1024, device=cuda))
     with pytest.raises(ValueError, match="source ranks"):
         tia.interact_masked_cuda(tgt, src, mask, dense, c, None, 3)
+
+
+# ---------------------------------------------------------------------------
+# The sequential-impulse contact solver (core/contact.py) on the card
+# ---------------------------------------------------------------------------
+
+
+def _contact_case(regime, dtype=torch.float64, seed=0):
+    """(pos, quat, vel, ang_v) numpy arrays and solver keywords (by device)."""
+    from gym_pybullet_drones_tpu_torch.core import collisions as tcol
+    from gym_pybullet_drones_tpu_torch.core.rotations import euler_xyz_to_quat
+
+    rng = np.random.RandomState(seed)
+    shape = dict(plane_obstacles=(64, 1), pairs=(64, 2), neighbor=(1, 200))[regime]
+    side = 0.08 * shape[1] ** (1 / 3)
+    pos = rng.uniform(0.0, side, shape + (3,))
+    pos[..., 2] = rng.uniform(0.0, 0.02, shape)
+    if regime == "plane_obstacles":  # beside the RL block, on the plane
+        pos += [0.9, 0.0, 0.0]
+    quat = euler_xyz_to_quat(torch.as_tensor(rng.uniform(-0.6, 0.6, shape + (3,)))).numpy()
+    arrays = (pos, quat, rng.normal(0, 0.6, shape + (3,)), rng.normal(0, 2.0, shape + (3,)))
+    if regime == "neighbor":
+        arrays = tuple(a[0] for a in arrays)
+
+    def kw(device):
+        if regime == "plane_obstacles":
+            return dict(obstacles=tcol.rl_obstacles(dtype, device))
+        return dict(drone_drone=True, env_batched=regime == "pairs")
+
+    return arrays, kw
+
+
+@pytest.mark.parametrize("regime", ["plane_obstacles", "pairs", "neighbor"])
+def test_solve_contacts_on_the_card_matches_the_cpu(cuda, regime):
+    """One solve in float64 on the card against the CPU at 1e-10: the plane
+    and obstacle rows (64 envs of one drone), the exact pair rows (64 envs of
+    two) and the neighbor rows (200 drones)."""
+    from gym_pybullet_drones_tpu_torch.core import contact as tcon
+    from gym_pybullet_drones_tpu_torch.core.params import drone_params
+
+    arrays, kw = _contact_case(regime)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = drone_params(dtype=torch.float64, device=dev)
+        t = [torch.as_tensor(a, dtype=torch.float64, device=dev) for a in arrays]
+        out[str(dev)] = [x.cpu() for x in tcon.solve_contacts(*t, p, 1 / 240, **kw(dev))]
+    assert (out["cpu"][0] - torch.as_tensor(arrays[2])).abs().max() > 1e-2  # the rows acted
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-10)
+
+
+def test_neighbor_solve_repeats_bit_for_bit_on_the_card(cuda):
+    """Partners pushed by several owners in one sub-pass are summed in owner
+    order (index_put_ with accumulate sorts its indices stably), so a float32
+    solve of a touching lattice repeats itself bit for bit."""
+    from gym_pybullet_drones_tpu_torch.core import contact as tcon
+    from gym_pybullet_drones_tpu_torch.core.params import drone_params
+
+    rng = np.random.RandomState(2)
+    g = np.stack(np.meshgrid(np.arange(64) * 0.1, np.arange(64) * 0.1), -1).reshape(-1, 2)
+    pos = np.concatenate([g + rng.uniform(-0.005, 0.005, g.shape), np.ones((len(g), 1))], 1)
+    n = len(pos)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    quat = t(np.tile([0.0, 0.0, 0.0, 1.0], (n, 1)))
+    p = drone_params(device=cuda)
+    args = (t(pos), quat, t(rng.normal(0, 0.3, (n, 3))), t(np.zeros((n, 3))), p, 1 / 240)
+    first = tcon.solve_contacts(*args, drone_drone=True)
+    second = tcon.solve_contacts(*args, drone_drone=True)
+    assert (first[0] - args[2]).abs().max() > 1e-2
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("build", ["build_pair_candidates", "build_pair_candidates_binned"])
+@pytest.mark.parametrize("kind", ["jittered", "lattice"])
+def test_candidate_sets_on_the_card_match_the_cpu(cuda, build, kind):
+    """idx and in_band on the card equal to the CPU's element for element in
+    float32, exact distance ties included (a 1/8 m lattice)."""
+    from gym_pybullet_drones_tpu_torch.core import contact as tcon
+
+    if kind == "jittered":
+        rng = np.random.RandomState(3)
+        centers = rng.uniform(0, 40, (1024, 3)) + [0, 0, 2]
+        pos = np.concatenate([centers, centers + rng.normal(0, 0.07, centers.shape)])
+    else:
+        g = np.stack(np.meshgrid(*(np.arange(k) for k in (9, 8, 5)), indexing="ij"), -1)
+        pos = g.reshape(-1, 3) * 0.125 + [3.0, -2.0, 1.0]
+    build = getattr(tcon, build)
+    want = build(torch.as_tensor(pos, dtype=torch.float32), 0.06)
+    got = build(torch.as_tensor(pos, dtype=torch.float32, device=cuda), 0.06)
+    assert bool(want[1].any())
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_.cpu(), w_)
+
+
+def test_impulse_step_physics_defaults_to_the_card(cuda):
+    """The entry points without a device run on the card: step_physics in the
+    impulse mode and the Aviary bundle of the contact checkpoints' config."""
+    from gym_pybullet_drones_tpu_torch.core import dynamics as tdyn
+    from gym_pybullet_drones_tpu_torch.core.params import drone_params
+    from gym_pybullet_drones_tpu_torch.envs.spec import ActionType, Physics
+
+    p = drone_params()
+    kin = tdyn.init_kin_state(torch.tensor([[0.0, 0.0, 0.02], [0.11, 0.0, 0.02]]),
+                              torch.tensor([[0.0, 0.0, 0.0, 1.0]] * 2), device=p.m.device)
+    rpm = torch.zeros((2, 4), device=p.m.device)
+    out, _ = tdyn.step_physics(kin, rpm, rpm, p, 1 / 240, 8, Physics.PYB, collisions=True,
+                               contact_mode="impulse")
+    assert out.pos.is_cuda and bool(torch.isfinite(out.vel).all())
+    cfg = tbase.AviaryConfig(num_drones=2, task=tbase.TASK_MULTIHOVER, ctrl_freq=30,
+                             action_type=ActionType.ONE_D_RPM, action_buffer_size=15,
+                             collisions=True, contact_mode="impulse")
+    av = tbase.Aviary(cfg)
+    state, obs = av.reset()
+    state, obs, *_ = av.step(state, -torch.ones((2, 1), device=obs.device))
+    assert obs.is_cuda and bool(torch.isfinite(obs).all())

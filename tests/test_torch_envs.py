@@ -1,5 +1,6 @@
 """The port's env step, batched step and rollout helpers against the JAX package
-in float64, and the velocity_pyb / hover_learn_pyb goldens through the port."""
+in float64, and the velocity_pyb / hover_learn_pyb / multihover_pyb goldens
+through the port."""
 
 import importlib
 import os
@@ -138,15 +139,28 @@ def test_adjacency_matrix_matches_jax():
 
 
 def test_rgb_and_contact_configs_name_their_slice():
-    """RGB names slice 4; collisions=True is ported, and its impulse mode
-    names slice 3 when the env steps."""
+    """RGB names slice 4. The impulse contact mode steps
+    tests/test_contact.py:226-241's config (two drones, MultiHover,
+    ONE_D_RPM, collisions, the RL landmarks) through the Aviary bundle, 20
+    control steps of -0.9, against the JAX package at 1e-10: finite, and the
+    grounded drones held on the plane."""
     with pytest.raises(NotImplementedError, match="slice 4"):
         tbase.AviaryConfig(obs_type=tspec.ObservationType.RGB)
-    cfg = tbase.AviaryConfig(collisions=True, contact_mode="impulse")
-    av = tbase.Aviary(cfg, device="cpu")
-    state, _ = av.reset()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        av.step(state, torch.zeros((1, 4)))
+    jcfg, tcfg = _configs("multihover", "ONE_D_RPM", 2, 30, 15, collisions=True,
+                          contact_mode="impulse")
+    jav, av = jbase.Aviary(jcfg), tbase.Aviary(tcfg, device="cpu")
+    jstate, _ = jav.reset()
+    state, obs = av.reset()
+    jstep = jit_reference(jav.step_fn)
+    action = -0.9 * np.ones((2, 1))
+    for _ in range(20):
+        jstate, jobs, *_ = jstep(jstate, jnp.asarray(action))
+        state, obs, *_ = av.step(state, torch.as_tensor(action))
+        _assert_state_close(state, jstate, 1e-10)
+        np.testing.assert_allclose(obs.numpy(), np.asarray(jobs), rtol=1e-12, atol=1e-10)
+    assert bool(torch.isfinite(obs).all())
+    z = state.kin.pos[:, 2].numpy()
+    assert np.all(z > 0.005) and np.all(z < 0.2)
 
 
 def test_aviary_bundle_steps_on_the_cpu():
@@ -265,14 +279,13 @@ def test_velocity_golden_through_port():
     assert np.abs(obs[..., 0:3] - g["obs"][..., 0:3]).max() < 5e-2
 
 
-def test_hover_learn_golden_through_port():
-    """tests/test_golden_pyb.py:180-191: the whole 8.2 s open-loop flight at
-    1e-9, and the terminated/truncated streams exactly."""
-    g = np.load(os.path.join(GOLDEN, "hover_learn_pyb.npz"))
-    cfg = tbase.AviaryConfig(num_drones=1, physics=tspec.Physics.PYB, pyb_freq=240,
-                             ctrl_freq=30, task=tbase.TASK_HOVER,
-                             action_type=tspec.ActionType.ONE_D_RPM, action_buffer_size=15,
-                             dtype="float64", initial_xyzs=((0.0, 0.0, 0.025 / 2 + 0.1),))
+def _replay_rl_golden(golden, task, n, init):
+    """tests/test_golden_pyb.py:97-121: the learn config (PYB, 240/30 Hz,
+    ONE_D_RPM, buffer 15) through the env step, float64."""
+    g = np.load(os.path.join(GOLDEN, golden))
+    cfg = tbase.AviaryConfig(num_drones=n, physics=tspec.Physics.PYB, pyb_freq=240,
+                             ctrl_freq=30, task=task, action_type=tspec.ActionType.ONE_D_RPM,
+                             action_buffer_size=15, dtype="float64", initial_xyzs=init)
     p, cp = tbase.build_params(cfg, "cpu"), tbase.build_ctrl_params(cfg, "cpu")
     tgt = tbase.hover_target_pos(cfg, p)
     state = tbase.reset(cfg, p)
@@ -286,3 +299,17 @@ def test_hover_learn_golden_through_port():
     np.testing.assert_allclose(reward, g["reward"], atol=1e-9)
     np.testing.assert_array_equal(term, g["terminated"])
     np.testing.assert_array_equal(trunc, g["truncated"])
+
+
+def test_hover_learn_golden_through_port():
+    """tests/test_golden_pyb.py:180-191: the whole 8.2 s open-loop flight at
+    1e-9, and the terminated/truncated streams exactly."""
+    _replay_rl_golden("hover_learn_pyb.npz", tbase.TASK_HOVER, 1, ((0.0, 0.0, 0.025 / 2 + 0.1),))
+
+
+def test_multihover_golden_through_port():
+    """tests/test_golden_pyb.py:203-212: two drones of MultiHover, the
+    whole flight at 1e-9, the signals exactly."""
+    arm, z0 = 0.0397, 0.025 / 2 + 0.1
+    _replay_rl_golden("multihover_pyb.npz", tbase.TASK_MULTIHOVER, 2,
+                      ((0.0, 0.0, z0), (4 * arm, 4 * arm, z0)))

@@ -1,5 +1,6 @@
-"""Port rotations, aero, dynamics and DSLPID against the JAX package in float64,
-and the hover_dyn / helix_pyb goldens replayed through the port."""
+"""Port rotations, aero, dynamics (both contact modes) and DSLPID against the JAX
+package in float64, and the hover_dyn, helix_dyn, helix_pyb, downwash_pyb,
+downwash_gdd, cf2p_pyb and race_pyb goldens replayed through the port."""
 
 import os
 
@@ -149,16 +150,39 @@ def test_step_physics_matches_jax(physics):
 
 
 def test_step_physics_leaves_contact_slices_unported():
-    """Clamp contact with collisions is ported (tests/test_torch_collisions.py);
-    the sequential-impulse mode, with or without collisions, names slice 3."""
+    """The sequential-impulse contact mode against the JAX package over every
+    PYB mode, float64, 5 control steps of 2 substeps: _fleet's column with its lowest drone
+    on the plane beside the RL block (plane and obstacle rows live), with
+    collisions (the exact pair rows) and the RL landmarks; every state leaf
+    at 1e-11 and the carried action exactly."""
+    from gym_pybullet_drones_tpu.core.collisions import rl_obstacles as jax_rl_obstacles
+    from gym_pybullet_drones_tpu_torch.core.collisions import rl_obstacles
+
+    jp = jax_drone_params(dtype=jnp.float64)
     tp = drone_params(dtype=F64, device="cpu")
-    kin = tdyn.init_kin_state(_t([[0.0, 0.0, 1.0]]), _t([[0.0, 0.0, 0.0, 1.0]]))
-    rpm = torch.zeros((1, 4), dtype=F64)
-    tdyn.step_physics(kin, rpm, rpm, tp, 1 / 240, 5, Physics.PYB, collisions=True)
-    for collisions in (False, True):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            tdyn.step_physics(kin, rpm, rpm, tp, 1 / 240, 5, Physics.PYB,
-                              collisions=collisions, contact_mode="impulse")
+    jobs, tobs = jax_rl_obstacles(jnp.float64), rl_obstacles(F64, "cpu")
+    hover = float(jp.hover_rpm)
+    for physics in ("PYB", "PYB_GND", "PYB_DRAG", "PYB_DW", "PYB_GND_DRAG_DW"):
+        rng = np.random.RandomState(3)
+        s0 = _fleet(rng)
+        s0["pos"] += np.array([0.85, 0.0, -0.29])  # lowest drone at z <= 0.01
+        jkin = jdyn.KinState(**{k: jnp.asarray(v) for k, v in s0.items()})
+        tkin = tdyn.KinState(**{k: _t(v) for k, v in s0.items()})
+        jlast, tlast = jnp.zeros((3, 4)), torch.zeros((3, 4), dtype=F64)
+        jstep = jit_reference(lambda k, r, l, ph=physics: jdyn.step_physics(
+            k, r, l, jp, 1 / 240, 2, JPhysics[ph], collisions=True, obstacles=jobs,
+            contact_mode="impulse"))
+        for _ in range(5):
+            rpm = hover * (1.0 + 0.05 * rng.uniform(-1, 1, (3, 4)))
+            jkin, jlast = jstep(jkin, jnp.asarray(rpm), jlast)
+            tkin, tlast = tdyn.step_physics(tkin, _t(rpm), tlast, tp, 1 / 240, 2,
+                                            Physics[physics], collisions=True,
+                                            obstacles=tobs, contact_mode="impulse")
+            for k in s0:
+                np.testing.assert_allclose(_n(getattr(tkin, k)), np.asarray(getattr(jkin, k)),
+                                           rtol=0, atol=1e-11, err_msg=f"{physics} {k}")
+            np.testing.assert_array_equal(_n(tlast), np.asarray(jlast))
+        assert float(tkin.pos[0, 2]) < 0.05  # the lowest drone stayed on the plane
 
 
 @pytest.mark.parametrize("model", ["CF2X", "CF2P"])
@@ -216,29 +240,103 @@ def test_hover_dyn_golden_through_port():
     np.testing.assert_allclose(np.stack(rpms), g["rpm"], atol=1e-8)
 
 
-def test_helix_pyb_golden_through_port():
-    """tests/test_golden_pyb.py's float64 replay: pos[:48] at 1e-9 and the
-    4 s flight inside 5e-2."""
-    g = np.load(os.path.join(GOLDEN, "helix_pyb.npz"))
-    n = 3
-    p = drone_params(dtype=F64, device="cpu")
-    cp = tpid.dsl_pid_params(dtype=F64, device="cpu")
-    init_xyzs, init_rpys = _t(g["init_xyzs"]), _t(g["init_rpys"])
+def _replay_waypoints(golden, physics, n, model="CF2X"):
+    """tests/test_golden_pyb.py:48-92 (and tests/test_golden.py's helix_dyn):
+    step_physics, then DSLPID toward the golden's waypoints, float64."""
+    g = np.load(os.path.join(GOLDEN, golden))
+    p = drone_params(DroneModel[model], dtype=F64, device="cpu")
+    cp = tpid.dsl_pid_params(DroneModel[model], dtype=F64, device="cpu")
+    init_xyzs = _t(g["init_xyzs"])
+    init_rpys = _t(g["init_rpys"]) if "init_rpys" in g.files else torch.zeros((n, 3), dtype=F64)
     kin = tdyn.init_kin_state(init_xyzs, trot.euler_xyz_to_quat(init_rpys))
     cs = tpid.dsl_pid_reset((n,), dtype=F64, device="cpu")
-    track, tz = _t(g["txy"]), init_xyzs[:, 2]
+    tz = init_xyzs[:, 2]
+    if "txy" in g.files:
+        track = _t(g["txy"])
+        target = lambda wp: torch.cat([track[torch.as_tensor(wp)], tz[:, None]], -1)
+    else:
+        track = _t(g["x"])
+        target = lambda wp: torch.stack([track[torch.as_tensor(wp)], torch.zeros_like(tz), tz],
+                                        -1)
     wp = np.asarray(g["wp0"]).copy()
     rpm = torch.zeros((n, 4), dtype=F64)
     last = torch.zeros((n, 4), dtype=F64)
+    dyn = physics == "DYN"
     out = []
     for _ in range(g["pos"].shape[0]):
-        kin, last_next = tdyn.step_physics(kin, rpm, last, p, 1 / 240, 5, Physics.PYB)
-        target = torch.cat([track[torch.as_tensor(wp)], tz[:, None]], -1)
+        kin, last_next = tdyn.step_physics(kin, rpm, rpm if dyn else last, p, 1 / 240, 5,
+                                           Physics[physics], renormalize_quat=not dyn)
         rpm, cs, _, _ = tpid.dsl_pid_control(cp, cs, 1 / 48, kin.pos, kin.quat, kin.vel,
-                                             target, init_rpys)
+                                             target(wp), init_rpys)
         last = last_next
         wp = np.where(wp < track.shape[0] - 1, wp + 1, 0)
+        out.append(_n(kin.pos))
+    return np.stack(out), g
+
+
+def test_helix_pyb_golden_through_port():
+    """tests/test_golden_pyb.py's float64 replay: pos[:48] at 1e-9 and the
+    4 s flight inside 5e-2."""
+    pos, g = _replay_waypoints("helix_pyb.npz", "PYB", 3)
+    np.testing.assert_allclose(pos[:48], g["pos"][:48], atol=1e-9)
+    assert np.abs(pos - g["pos"]).max() < 5e-2
+
+
+@pytest.mark.parametrize("golden,physics,mid", [("downwash_pyb.npz", "PYB_DW", 2e-4),
+                                                ("downwash_gdd.npz", "PYB_GND_DRAG_DW", 2e-3)])
+def test_downwash_golden_through_port(golden, physics, mid):
+    """tests/test_golden_pyb.py:147-172: the wake (and with it ground effect
+    and the previous-action drag) in closed loop: pos[:48] at 1e-9, the
+    first 2 s inside ``mid`` and the 4 s flight inside 5e-2."""
+    pos, g = _replay_waypoints(golden, physics, 2)
+    np.testing.assert_allclose(pos[:48], g["pos"][:48], atol=1e-9)
+    assert np.abs(pos[:96] - g["pos"][:96]).max() < mid
+    assert np.abs(pos - g["pos"]).max() < 5e-2
+
+
+def test_helix_dyn_golden_through_port():
+    """tests/test_golden.py:109-117: the 3-drone DYN helix, pos[:48] at
+    1e-8 and the flight inside 2e-2."""
+    pos, g = _replay_waypoints("helix_dyn.npz", "DYN", 3)
+    np.testing.assert_allclose(pos[:48], g["pos"][:48], atol=1e-8)
+    assert np.abs(pos - g["pos"]).max() < 2e-2
+
+
+def test_cf2p_golden_through_port():
+    """tests/test_golden_pyb.py:270-300: the CF2P's plus mixer and inertia
+    through DSLPID and PYB, four legs of 48 steps: pos[:48] at 1e-9, the
+    flight inside 5e-2."""
+    g = np.load(os.path.join(GOLDEN, "cf2p_pyb.npz"))
+    p = drone_params(DroneModel.CF2P, dtype=F64, device="cpu")
+    cp = tpid.dsl_pid_params(DroneModel.CF2P, dtype=F64, device="cpu")
+    kin = tdyn.init_kin_state(_t([[0.0, 0.0, 0.3]]), _t([[0.0, 0.0, 0.0, 1.0]]))
+    cs = tpid.dsl_pid_reset((1,), dtype=F64, device="cpu")
+    legs = _t([[0.2, 0.0, 0.5], [0.0, 0.2, 0.7], [-0.2, 0.0, 0.5], [0.0, -0.2, 0.6]])
+    rpm = torch.zeros((1, 4), dtype=F64)
+    last = torch.zeros((1, 4), dtype=F64)
+    out = []
+    for t in range(g["pos"].shape[0]):
+        kin, last = tdyn.step_physics(kin, rpm, last, p, 1 / 240, 5, Physics.PYB)
+        rpm, cs, _, _ = tpid.dsl_pid_control(cp, cs, 1 / 48, kin.pos, kin.quat, kin.vel,
+                                             legs[(t // 48) % 4][None])
         out.append(_n(kin.pos))
     pos = np.stack(out)
     np.testing.assert_allclose(pos[:48], g["pos"][:48], atol=1e-9)
     assert np.abs(pos - g["pos"]).max() < 5e-2
+
+
+def test_race_golden_through_port():
+    """tests/test_golden_pyb.py:303-325: the RACE's flipped yaw reaction and
+    wide prop offsets under the golden's open-loop RPMs, the whole flight:
+    pos at 1e-9, ang_v at 1e-8."""
+    g = np.load(os.path.join(GOLDEN, "race_pyb.npz"))
+    p = drone_params(DroneModel.RACE, dtype=F64, device="cpu")
+    kin = tdyn.init_kin_state(_t([[0.0, 0.0, 1.0]]), _t([[0.0, 0.0, 0.0, 1.0]]))
+    last = torch.zeros((1, 4), dtype=F64)
+    pos, ang = [], []
+    for t in range(g["pos"].shape[0]):
+        kin, last = tdyn.step_physics(kin, _t(g["rpm"][t]), last, p, 1 / 240, 5, Physics.PYB)
+        pos.append(_n(kin.pos))
+        ang.append(_n(kin.ang_v))
+    np.testing.assert_allclose(np.stack(pos), g["pos"], atol=1e-9)
+    np.testing.assert_allclose(np.stack(ang), g["ang_v"], atol=1e-8)
