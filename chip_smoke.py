@@ -108,7 +108,27 @@ Phases, one or more lines each:
      control step (events), kernels and memsets a control step, card-busy
      ms and idle share (torch.profiler), the candidate build's ms and
      env-steps/s or drone-steps/s;
-  10. one JSON line of kernels (``ms``: CUDA events around the wrapper's
+  10. PPO (rl/ppo.py) on the card, examples/learn.py's ONE_D_RPM Hover
+     settings (240/30 Hz, action buffer 15, float32, TF32 off): (a) three
+     train steps from ppo_init at E = 128, n_steps = 128, minibatch 1024,
+     log-std annealed toward -2.5: finite metrics, params moved, update_count
+     3, the env state on the card; (b) one train step on the card and on the
+     CPU from the same converted initial params (E = 64, n_steps = 32, 0.5 s
+     episodes so that truncation and auto-reset occur, det_frac 1, one
+     minibatch, 2 epochs) at tests/test_torch_ppo.py's limits; (c) one train
+     step at E = 4096, n_steps = 128, auto minibatches, after a warm-up
+     one: ms of its rollout and update halves (CUDA events), env-steps/s;
+     a rollout control step alone: ms (events), kernels and memsets,
+     card-busy ms and idle share (torch.profiler); (d) the same with
+     domain_rand {"m": 0.1, "kf": 0.05}, finite, and 30 deterministic
+     control steps from reset spreading z over the envs by more than 1 mm
+     (none on the nominal plant); (e)
+     checkpoints/one_d_rpm_hover.msgpack (>= 474.0) and pid_multihover
+     (>= 920.0) through load_flax_msgpack and evaluate_policy over 2,600
+     control steps on one env, the two in two processes at once
+     (``python3 chip_smoke.py --eval NAME``), each return, episode count and
+     seconds;
+  11. one JSON line of kernels (``ms``: CUDA events around the wrapper's
      calls; ``device_ms``: the device time of its kernels and memsets under
      torch.profiler, null if not measured), the nvidia-smi line, and the
      result line.
@@ -117,6 +137,7 @@ Phases, one or more lines each:
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -128,6 +149,11 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from gym_pybullet_drones_tpu_torch.convert import (
+    actor_critic_from_flax,
+    actor_critic_to_flax,
+    load_flax_msgpack,
+)
 from gym_pybullet_drones_tpu_torch.core.contact import (
     NBR_MAX_N,
     build_pair_candidates,
@@ -193,6 +219,14 @@ from gym_pybullet_drones_tpu_torch.ops.velocity_soa import (
     physics_substep_soa,
     velocity_step_soa,
     velocity_target,
+)
+from gym_pybullet_drones_tpu_torch.rl.ppo import (
+    ActorCritic,
+    PPOConfig,
+    evaluate_policy,
+    make_ppo_train_step,
+    ppo_init,
+    rollout_step,
 )
 from gym_pybullet_drones_tpu_torch.runtime.rollout import batch_reset, make_batched_step
 from gym_pybullet_drones_tpu_torch.runtime.swarm import (
@@ -1715,6 +1749,209 @@ def phase9_impulse(dev, params):
           "its own: its rows are plain PyTorch ops)", flush=True)
 
 
+# Phase 10: PPO on the card. examples/learn.py's ONE_D_RPM Hover env and
+# settings; (b) holds the card to the CPU at tests/test_torch_ppo.py's limits
+# (float32: a parameter moves by about lr = 3e-4 an Adam step, and 1e-5 is
+# 3 % of one; the 32-step deterministic rollouts differ by float32 rounding).
+PPO_ENV = dict(num_drones=1, task=TASK_HOVER, action_type=ActionType.ONE_D_RPM, pyb_freq=240,
+               ctrl_freq=30, action_buffer_size=15, episode_len_sec=8.0)
+PPO_LEARN = dict(n_steps=128, log_std_anneal_to=-2.5, log_std_anneal_updates=366)
+PPO_WIDE = 4096  # BASELINE config 5's width, a point of scripts/ppo_bench.py's ladder
+PPO_PARAM_ATOL, PPO_METRIC_RTOL = 1e-5, 1e-4
+# (e): the checkpoints, their env and the reference's threshold (learn.py:79-82,
+# tests/test_checkpoints.py), over the SB3 protocol: 10 consecutive episodes
+# on one env, 2,600 control steps.
+CHECKPOINT_EVALS = {"one_d_rpm_hover": (TASK_HOVER, ActionType.ONE_D_RPM, 1, 474.0),
+                    "pid_multihover": (TASK_MULTIHOVER, ActionType.PID, 2, 920.0)}
+EVAL_STEPS = 2600
+
+
+def checkpoint_eval(name):
+    """``python3 chip_smoke.py --eval NAME``: a checkpoint through
+    load_flax_msgpack and evaluate_policy on the card; prints one JSON line."""
+    task, action, n, _ = CHECKPOINT_EVALS[name]
+    cfg = AviaryConfig(num_drones=n, task=task, action_type=action, pyb_freq=240, ctrl_freq=30,
+                       action_buffer_size=15, episode_len_sec=8.0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    net = actor_critic_from_flax(load_flax_msgpack(os.path.join(root, "checkpoints",
+                                                                f"{name}.msgpack")))
+    _, aux = ppo_init(cfg, PPOConfig(num_envs=1), 0)
+    t0 = time.perf_counter()
+    ret, episodes = evaluate_policy(cfg, aux, net, num_steps=EVAL_STEPS, num_envs=1)
+    print(json.dumps(dict(name=name, ret=ret, episodes=episodes,
+                          seconds=time.perf_counter() - t0,
+                          device=str(next(net.parameters()).device),
+                          env_device=str(aux["params_env"].m.device))))
+    return 0
+
+
+def on_card(struct):
+    leaves = []
+    struct.map(lambda t: leaves.append(t.is_cuda) or t)
+    return all(leaves)
+
+
+def ppo_width(dev, what, domain_rand=None):
+    """(c) / (d): one train step at E = 4096 after a warm-up one, then the
+    rollout's control step alone (events and torch.profiler)."""
+    cfg = AviaryConfig(**PPO_ENV)
+    ppo_cfg = PPOConfig(num_envs=PPO_WIDE, **PPO_LEARN)
+    runner, aux = ppo_init(cfg, ppo_cfg, 1, domain_rand=domain_rand)
+    train = make_ppo_train_step(cfg, ppo_cfg, aux)
+    times = []  # (rollout, update) ms of each train step, CUDA events
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        runner, rollout = train.collect(runner)
+        ev[1].record()
+        runner, metrics = train.update(runner, rollout)
+        ev[2].record()
+        ev[2].synchronize()
+        times.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+    bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v))]
+    if bad or not on_card(runner.env_state):
+        fail(f"{what}: metrics {bad} not finite, or the env state left the card")
+    step_env = make_batched_step(cfg, aux.get("train_params_env", aux["params_env"]),
+                                 aux["ctrl_params"], aux["target_pos"])
+    holder = [runner.env_state, runner.obs]
+
+    def one():
+        with torch.no_grad():
+            holder[0], out, _ = rollout_step(runner.params, step_env, holder[0], holder[1],
+                                             runner.generator, 0, (1, 1))
+        holder[1] = out.obs
+
+    step_ms = per_pass_ms(one, 16, 3)
+    prof = profile_steps(one, 2)
+    if prof is None:
+        fail(f"{what}: torch.profiler saw no kernel on the card")
+    (roll_ms, upd_ms), total = times[1], sum(times[1])
+    print(f"[10] {what}: E={PPO_WIDE}, n_steps={ppo_cfg.n_steps}, "
+          f"{ppo_cfg.num_minibatches} minibatches of {ppo_cfg.resolved_minibatch_size} x "
+          f"{ppo_cfg.n_epochs} epochs: train step {total:.1f} ms = rollout {roll_ms:.1f} "
+          f"({roll_ms / ppo_cfg.n_steps:.4f} a control step) + update {upd_ms:.1f} ms (CUDA "
+          f"events; warm-up step {times[0][0]:.1f} + {times[0][1]:.1f} ms), "
+          f"{PPO_WIDE * ppo_cfg.n_steps / (total / 1e3):.6g} env-steps/s; a rollout control "
+          f"step alone {step_ms:.4f} ms (events, median of 3 x 16), under torch.profiler "
+          f"{prof['kernels_per_step']:.0f} kernels and memsets, card busy "
+          f"{prof['busy_ms']:.4f} ms, idle share {1.0 - prof['busy_ms'] / step_ms:.4f} (against "
+          f"the rollout's mean control step {1.0 - prof['busy_ms'] * ppo_cfg.n_steps / roll_ms:.4f}"
+          f"), host wall {prof['wall_ms']:.2f} ms; metrics "
+          + json.dumps({k: float(f"{float(v):.6g}") for k, v in metrics.items()}), flush=True)
+    return runner, aux, cfg, step_ms
+
+
+def phase10_ppo(dev):
+    """PPO through ppo_init, make_ppo_train_step, evaluate_policy on the card."""
+    t_phase = time.perf_counter()
+    before = dict(pair_launches(), K1=velocity_rollout_cuda.launches)
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: the PPO path runs in full float32")
+    cfg = AviaryConfig(**PPO_ENV)
+
+    # (a) learn.py's settings from ppo_init
+    ppo_cfg = PPOConfig(num_envs=128, minibatch_size=1024, **PPO_LEARN)
+    runner, aux = ppo_init(cfg, ppo_cfg, 0)
+    start = [p.detach().clone() for p in runner.params.parameters()]
+    train = make_ppo_train_step(cfg, ppo_cfg, aux)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        runner, metrics = train(runner)
+        bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v))]
+        if bad:
+            fail(f"(a) PPO metrics not finite: {bad}")
+    secs = time.perf_counter() - t0
+    moved = max(float((p.detach() - q).abs().max())
+                for p, q in zip(runner.params.parameters(), start))
+    where = {p.device.type for p in runner.params.parameters()} | {runner.obs.device.type}
+    if runner.update_count != 3 or not moved > 0 or where != {dev.type} \
+            or not on_card(runner.env_state):
+        fail(f"(a) update_count {runner.update_count}, params moved {moved}, devices {where}")
+    print(f"[10] (a) 3 train steps from ppo_init, E=128, n_steps=128, minibatch 1024: "
+          f"{secs:.1f} s (host clock); update_count 3, params moved up to {moved:.3g}, all on "
+          f"the card; last metrics "
+          + json.dumps({k: float(f"{float(v):.6g}") for k, v in metrics.items()}), flush=True)
+
+    # (b) the card against the CPU from the same converted initial params
+    cfg_b = AviaryConfig(**{**PPO_ENV, "episode_len_sec": 0.5})
+    ppo_b = PPOConfig(num_envs=64, n_steps=32, minibatch_size=64 * 32, n_epochs=2, det_frac=1.0)
+    tree = actor_critic_to_flax(ActorCritic(27, 1, generator=torch.Generator().manual_seed(7),
+                                            device="cpu"))
+    runs = []  # the card's, then the CPU's
+    for d in (dev, torch.device("cpu")):
+        r, a = ppo_init(cfg_b, ppo_b, 0, device=d)
+        r.params.load_state_dict(actor_critic_from_flax(tree, device=d).state_dict())
+        r, m = make_ppo_train_step(cfg_b, ppo_b, a)(r)
+        runs.append(([p.detach().cpu() for p in r.params.parameters()],
+                     {k: float(v) for k, v in m.items()}))
+    (pc, mc), (pp, mp) = runs
+    p_gap = max(float((a - b).abs().max()) for a, b in zip(pc, pp))
+    m_gap = {k: abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-30) for k in mp}
+    print(f"[10] (b) one train step, card vs CPU (E=64, n_steps=32, 0.5 s episodes, det_frac 1, "
+          f"one minibatch, 2 epochs): max |param gap| {p_gap:.3g} (limit {PPO_PARAM_ATOL}), "
+          f"relative metric gaps " + json.dumps({k: float(f"{v:.3g}") for k, v in m_gap.items()})
+          + f" (limit {PPO_METRIC_RTOL}, approx_kl 1e-6 absolute); episodes done "
+          f"{mc['episodes_done']:.0f}", flush=True)
+    if not p_gap <= PPO_PARAM_ATOL:
+        fail(f"(b) params after the update differ card vs CPU by {p_gap}")
+    if not mp["episodes_done"] > 0 or mc["episodes_done"] != mp["episodes_done"]:
+        fail("(b) the episodes done differ, or no episode ended")
+    for k in mp:
+        if not abs(mc[k] - mp[k]) <= PPO_METRIC_RTOL * abs(mp[k]) + 1e-6:
+            fail(f"(b) metric {k} differs card vs CPU: {mc[k]} vs {mp[k]}")
+
+    # (c), (d) BASELINE config 5's width, nominal and per-env plants
+    _, _, _, nominal_ms = ppo_width(dev, "(c) nominal")
+    _, aux_d, cfg_d, dr_ms = ppo_width(dev, "(d) domain_rand m 0.1, kf 0.05",
+                                       {"m": 0.1, "kf": 0.05})
+    spread = {}
+    for key, params_env in (("per-env", aux_d["train_params_env"]),
+                            ("nominal", aux_d["params_env"])):
+        step = make_batched_step(cfg_d, params_env, aux_d["ctrl_params"], aux_d["target_pos"])
+        state = batch_reset(cfg_d, params_env, PPO_WIDE)
+        act = torch.full((PPO_WIDE, 1, 1), 0.3, device=dev)
+        for _ in range(30):
+            state, _ = step(state, act)
+        z = state.kin.pos[:, 0, 2]
+        spread[key] = float(z.max() - z.min())
+    print(f"[10] (d) rollout control step {dr_ms:.4f} ms per-env against {nominal_ms:.4f} ms "
+          f"nominal ({dr_ms / nominal_ms:.3f}x); z spread over the envs after 30 control steps "
+          f"of action 0.3 from reset: per-env {spread['per-env']:.4g} m, nominal "
+          f"{spread['nominal']:.4g} m", flush=True)
+    if not spread["per-env"] > 1e-3 or spread["nominal"] != 0.0:
+        fail(f"(d) the per-env plants did not spread z: {spread}")
+
+    # (e) the checkpoints over the protocol, two processes at once
+    procs = {name: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--eval", name],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name in CHECKPOINT_EVALS}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                fail(f"(e) {name}: the eval exited {proc.returncode}: {err[-2000:]}")
+            res = json.loads(out.strip().splitlines()[-1])
+            threshold = CHECKPOINT_EVALS[name][3]
+            print(f"[10] (e) {name}: mean return {res['ret']:.5f} over {res['episodes']} "
+                  f"episodes ({EVAL_STEPS} control steps, one env, policy on "
+                  f"{res['device']}, env on {res['env_device']}), threshold {threshold}, "
+                  f"{res['seconds']:.1f} s", flush=True)
+            if res["device"] != "cuda:0" or res["env_device"] != "cuda:0":
+                fail(f"(e) {name} did not run on the card")
+            if not (res["episodes"] >= 10 and res["ret"] >= threshold):
+                fail(f"(e) {name}: {res['ret']} over {res['episodes']} episodes, under "
+                     f"{threshold}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    after = dict(pair_launches(), K1=velocity_rollout_cuda.launches)
+    print(f"[10] phase 10: {time.perf_counter() - t_phase:.1f} s; K1-K6 launches during it: "
+          f"{ {k: after[k] - before[k] for k in after} } (the PPO path is plain PyTorch ops "
+          "and torch.nn; the evals' processes load no kernel)", flush=True)
+
+
 def main():
     # ---------------- 1. device ----------------
     if not torch.cuda.is_available():
@@ -1919,7 +2156,10 @@ def main():
     # ---------------- 9. the impulse contact path ----------------
     phase9_impulse(dev, params)
 
-    # ---------------- 10. result ----------------
+    # ---------------- 10. PPO ----------------
+    phase10_ppo(dev)
+
+    # ---------------- 11. result ----------------
     kernels = [{
         "name": f"K1 {KERNEL}", "route": "cuda",
         "source": "gym_pybullet_drones_tpu_torch/csrc/velocity_rollout.cu",
@@ -1955,7 +2195,7 @@ def main():
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
             fail(f"non-finite measurement for {k['name']}")
         if k["device_ms"] is None:
-            print(f"[10] {k['name']}: device_ms null, no torch.profiler trace held its kernels "
+            print(f"[11] {k['name']}: device_ms null, no torch.profiler trace held its kernels "
                   "(not measured)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -1964,4 +2204,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--eval"]:
+        sys.exit(checkpoint_eval(sys.argv[2]))
     sys.exit(main())

@@ -1,6 +1,9 @@
 """PyTorch and CUDA port of gym_pybullet_drones_tpu (slice 1: the VelocityAviary
 main path; slice 2: the coupled swarm's SoA, sorted and binned backends;
-slice 3: the sequential-impulse contact solver, ``contact_mode="impulse"``).
+slice 3: the sequential-impulse contact solver, ``contact_mode="impulse"``;
+slice 4: PPO and the BC warm start, ``rl/``, with domain-randomized params,
+``core.params.randomize_params``, and the checkpoints read by
+``convert.load_flax_msgpack``).
 
 The JAX package ``gym_pybullet_drones_tpu`` stays the reference; this package
 never imports it or JAX. Entry points run on the CUDA card unless the caller

@@ -4,10 +4,18 @@ The JAX records' fields, read with ``np.asarray(getattr(record, field))``,
 become the port's records here, so both packages compute from identical
 inputs. The ``*_to_numpy`` functions read any record with the same field
 names (the port's or the JAX package's), so one comparison serves both.
-This module imports no JAX.
+Batched (per-env) parameter records come across the same way, their leaves
+with a leading env axis.
+
+Policy weights come across as flax writes them: ``load_flax_msgpack`` reads a
+``flax.serialization.to_bytes`` file (``checkpoints/*.msgpack``) with a
+decoder of its own, and ``actor_critic_from_flax`` / ``actor_critic_to_flax``
+map the tree to and from the port's ``ActorCritic``. This module imports no
+JAX, flax or msgpack.
 """
 
 import dataclasses
+import struct
 
 import numpy as np
 import torch
@@ -17,6 +25,7 @@ from gym_pybullet_drones_tpu_torch.control.dsl_pid import DSLPIDParams, DSLPIDSt
 from gym_pybullet_drones_tpu_torch.core.dynamics import KinState
 from gym_pybullet_drones_tpu_torch.core.params import DroneParams
 from gym_pybullet_drones_tpu_torch.envs.base import AviaryState
+from gym_pybullet_drones_tpu_torch.rl.ppo import ActorCritic
 
 _KIN = tuple(f.name for f in dataclasses.fields(KinState))
 _CTRL = tuple(f.name for f in dataclasses.fields(DSLPIDState))
@@ -85,3 +94,130 @@ def aviary_state_to_numpy(state) -> dict:
     for k in ("last_rpm", "action_buffer", "step_count"):
         out[k] = _np(getattr(state, k))
     return out
+
+
+# msgpack's fixed-width forms: first byte -> (struct format, byte count).
+_FIXED = {0xca: (">f", 4), 0xcb: (">d", 8), 0xcc: (">B", 1), 0xcd: (">H", 2),
+          0xce: (">I", 4), 0xcf: (">Q", 8), 0xd0: (">b", 1), 0xd1: (">h", 2),
+          0xd2: (">i", 4), 0xd3: (">q", 8)}
+_LEN = {1: ">B", 2: ">H", 4: ">I"}
+# flax.serialization's ext types: 1 an ndarray, 3 a numpy scalar.
+_EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
+
+
+class _Reader:
+    """A msgpack decoder for what ``flax.serialization.to_bytes`` writes:
+    maps, arrays, str, bin, ints, floats, nil, bool and flax's ndarray and
+    numpy-scalar ext types."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+
+    def take(self, n):
+        if self.pos + n > len(self.data):
+            raise ValueError("truncated msgpack data")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def unpack(self, fmt, n):
+        return struct.unpack(fmt, self.take(n))[0]
+
+    def length(self, n):
+        return self.unpack(_LEN[n], n)
+
+    def ext(self, n):
+        code = self.unpack(">b", 1)
+        payload = _Reader(self.take(n))
+        if code == _EXT_NDARRAY:
+            shape, dtype, raw = payload.read()
+            return np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape).copy()
+        if code == _EXT_NPSCALAR:
+            dtype, raw = payload.read()
+            return np.frombuffer(raw, dtype=np.dtype(dtype))[0]
+        raise ValueError(f"unsupported msgpack ext type {code}")
+
+    def read(self):
+        b = self.take(1)[0]
+        if b <= 0x7f:
+            return b
+        if b >= 0xe0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8f:
+            return self.map(b & 0x0f)
+        if 0x90 <= b <= 0x9f:
+            return self.array(b & 0x0f)
+        if 0xa0 <= b <= 0xbf:
+            return self.take(b & 0x1f).decode()
+        if b == 0xc0:
+            return None
+        if b in (0xc2, 0xc3):
+            return b == 0xc3
+        if b in (0xc4, 0xc5, 0xc6):  # bin 8 / 16 / 32
+            return bytes(self.take(self.length(1 << (b - 0xc4))))
+        if b in (0xc7, 0xc8, 0xc9):  # ext 8 / 16 / 32
+            return self.ext(self.length(1 << (b - 0xc7)))
+        if b in _FIXED:
+            return self.unpack(*_FIXED[b])
+        if 0xd4 <= b <= 0xd8:  # fixext 1 / 2 / 4 / 8 / 16
+            return self.ext(1 << (b - 0xd4))
+        if b in (0xd9, 0xda, 0xdb):  # str 8 / 16 / 32
+            return self.take(self.length(1 << (b - 0xd9))).decode()
+        if b in (0xdc, 0xdd):  # array 16 / 32
+            return self.array(self.length(2 << (b - 0xdc)))
+        if b in (0xde, 0xdf):  # map 16 / 32
+            return self.map(self.length(2 << (b - 0xde)))
+        raise ValueError(f"invalid msgpack byte 0x{b:02x}")
+
+    def array(self, n):
+        return [self.read() for _ in range(n)]
+
+    def map(self, n):
+        out = {}
+        for _ in range(n):
+            k = self.read()
+            out[k] = self.read()
+        return out
+
+
+def load_flax_msgpack(path) -> dict:
+    """The nested dict of numpy arrays of a ``flax.serialization.to_bytes``
+    file (what ``flax.serialization.msgpack_restore`` returns)."""
+    with open(path, "rb") as fh:
+        reader = _Reader(fh.read())
+    tree = reader.read()
+    if reader.pos != len(reader.data):
+        raise ValueError(f"{path}: trailing bytes after the msgpack object")
+    return tree
+
+
+def actor_critic_from_flax(params: dict, device=None) -> ActorCritic:
+    """An ``ActorCritic`` holding a flax ``ActorCritic``'s parameters
+    (``{"params": {"Dense_0": ..., "log_std": ...}}``): ``Dense_0`` ..
+    ``Dense_{h-1}`` the pi tower, ``Dense_h`` the mean head, the next h the vf
+    tower and the last the value head. A flax kernel is (in, out), a Linear
+    weight its transpose. The widths come from the shapes."""
+    tree = params["params"]
+    if any(k.startswith("Conv") for k in tree):
+        raise NotImplementedError("CnnActorCritic (RGB observations) comes with ROADMAP item 17")
+    dense = [tree[f"Dense_{i}"] for i in range(sum(k.startswith("Dense_") for k in tree))]
+    h = (len(dense) - 2) // 2
+    hidden = tuple(int(d["kernel"].shape[1]) for d in dense[:h])
+    net = ActorCritic(int(dense[0]["kernel"].shape[0]), int(dense[h]["kernel"].shape[1]),
+                      hidden, device=device)
+    layers = [*net.pi, net.mean, *net.vf, net.value]
+    with torch.no_grad():
+        for layer, d in zip(layers, dense):
+            layer.weight.copy_(torch.as_tensor(np.array(d["kernel"]).T))
+            layer.bias.copy_(torch.as_tensor(np.array(d["bias"])))
+        net.log_std.copy_(torch.as_tensor(np.array(tree["log_std"])))
+    return net
+
+
+def actor_critic_to_flax(module: ActorCritic) -> dict:
+    """The flax tree of ``actor_critic_from_flax``, as numpy arrays."""
+    layers = [*module.pi, module.mean, *module.vf, module.value]
+    tree = {f"Dense_{i}": {"bias": _np(layer.bias), "kernel": _np(layer.weight).T.copy()}
+            for i, layer in enumerate(layers)}
+    tree["log_std"] = _np(module.log_std)
+    return {"params": tree}

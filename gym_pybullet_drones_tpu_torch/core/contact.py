@@ -258,13 +258,16 @@ class _BodyRows:
                      for c in range(d.shape[-1])]
         self.lam = {q: _zeros(len(self.rows), d.shape[:-1] + (1,), d) for q in axes}
 
+    # S advances out of place (one kernel, as in place): torch.func.vmap, which
+    # steps domain-randomized envs, has no batching rule for addcmul_.
     def normal(self, S):
         lams = self.lam["n"]
         for c, p in enumerate(self.rows):
             H, G, kact = p["n"]
             new = torch.clamp_min(torch.addcmul(lams[c], p["tgt"] - _dot(S, H), kact), 0.0)
-            S.addcmul_(new - lams[c], G)
+            S = torch.addcmul(S, new - lams[c], G)
             lams[c] = new
+        return S
 
     def friction(self, S):
         for c, p in enumerate(self.rows):
@@ -274,8 +277,9 @@ class _BodyRows:
                 H, G, nkact = p[q]
                 lams = self.lam[q]
                 new = torch.clamp(torch.addcmul(lams[c], _dot(S, H), nkact), min=neg, max=limit)
-                S.addcmul_(new - lams[c], G)
+                S = torch.addcmul(S, new - lams[c], G)
                 lams[c] = new
+        return S
 
 
 def _plane_rows(pos, R, I_inv_w, inv_m, params, dt, erp, slop, breaking, mu):
@@ -345,29 +349,36 @@ class _ExactPairRows:
             self.rows.append(row)
         self.lam = {q: _zeros(len(self.rows), d.shape[:-1] + (1,), d) for q in rows}
 
-    def _solve(self, S, p, q, lams, c, lo=None, hi=None):
+    def _solve(self, drones, p, q, lams, c, lo=None, hi=None):
         Hi, Gi, Hj, Gj, kact = p[q]
-        Si, Sj = S[..., p["i"], :], S[..., p["j"], :]
-        u = _dot(Si, Hi) - _dot(Sj, Hj)
+        i, j = p["i"], p["j"]
+        u = _dot(drones[i], Hi) - _dot(drones[j], Hj)
         if lo is None:
             new = torch.clamp_min(torch.addcmul(lams[c], p["tgt"] - u, kact), 0.0)
         else:
             new = torch.clamp(torch.addcmul(lams[c], u, kact), min=lo, max=hi)
         a = new - lams[c]
-        Si.addcmul_(a, Gi)
-        Sj.addcmul_(a, Gj, value=-1.0)
+        drones[i] = torch.addcmul(drones[i], a, Gi)
+        drones[j] = torch.addcmul(drones[j], a, Gj, value=-1.0)
         lams[c] = new
 
+    # A sweep advances each drone's (..., 6) slice of S out of place (one
+    # kernel, as in place: torch.func.vmap has no batching rule for
+    # addcmul_) and stacks them back once.
     def normal(self, S):
+        drones = list(S.unbind(-2))
         for c, p in enumerate(self.rows):
-            self._solve(S, p, "n", self.lam["n"], c)
+            self._solve(drones, p, "n", self.lam["n"], c)
+        return torch.stack(drones, -2)
 
     def friction(self, S):
+        drones = list(S.unbind(-2))
         for c, p in enumerate(self.rows):
             limit = self.mu * self.lam["n"][c]
             neg = -limit
             for q in ("t1", "t2"):
-                self._solve(S, p, q, self.lam[q], c, neg, limit)
+                self._solve(drones, p, q, self.lam[q], c, neg, limit)
+        return torch.stack(drones, -2)
 
 
 class _NeighborRows:
@@ -419,17 +430,19 @@ class _NeighborRows:
         lams[s] = new
 
     def normal(self, S):
-        S = S.view(self.flat, 6)
+        flat = S.view(self.flat, 6)
         for s, p in enumerate(self.rows):
-            self._solve(S, p, "n", self.lam["n"], s)
+            self._solve(flat, p, "n", self.lam["n"], s)
+        return S
 
     def friction(self, S):
-        S = S.view(self.flat, 6)
+        flat = S.view(self.flat, 6)
         for s, p in enumerate(self.rows):
             limit = self.mu * self.lam["n"][s]
             neg = -limit
             for q in ("t1", "t2"):
-                self._solve(S, p, q, self.lam[q], s, neg, limit)
+                self._solve(flat, p, q, self.lam[q], s, neg, limit)
+        return S
 
 
 class _JacobiPairRows:
@@ -458,9 +471,10 @@ class _JacobiPairRows:
         a = new - self.lam
         vel.add_((a[..., None] * self.n).sum(-2) * self.inv_m)
         self.lam = new
+        return S
 
     def friction(self, S):
-        pass  # normal rows only
+        return S  # normal rows only
 
 
 def solve_contacts(
@@ -521,12 +535,12 @@ def solve_contacts(
         families.append(_obstacle_rows(pos, I_inv_w, inv_m, radius, obstacles, *geometry,
                                        mu_pair))
 
-    # Each family of rows sweeps the (..., 6) state S = [vel, ang_v] in place
-    # and keeps its own accumulated impulses.
+    # Each family of rows sweeps the (..., 6) state S = [vel, ang_v] and
+    # keeps its own accumulated impulses.
     S = torch.cat([vel, ang_v], -1)
     for _ in range(n_iter):
         for rows in families:
-            rows.normal(S)
+            S = rows.normal(S)
         for rows in families:
-            rows.friction(S)
+            S = rows.friction(S)
     return S[..., :3], S[..., 3:]

@@ -10,8 +10,8 @@ float64 numpy and then cast, so a float64 ``DroneParams`` equals the JAX one
 field for field.
 
 These are physical constants, not learnable weights, so the record is not an
-``nn.Module``. Domain randomization (``randomize_params``) comes with a later
-slice.
+``nn.Module``. ``randomize_params`` batches a record over envs with a
+perturbed plant each (domain randomization).
 """
 
 import dataclasses
@@ -292,3 +292,53 @@ def from_urdf(path: str, model: DroneModel = DroneModel.CF2X, dtype=torch.float3
         prop_offsets=prop_offsets,
     )
     return _build(table, model, dtype, device)
+
+
+# Fractional-jitter spec keys -> the base PLANT fields they scale.
+RANDOMIZABLE = ("m", "kf", "km", "inertia", "drag", "gnd_eff_coeff",
+                "dw_coeff_1")
+
+
+def randomize_params(generator: torch.Generator, params: DroneParams, num_envs: int,
+                     spec: dict) -> DroneParams:
+    """Domain randomization: a DroneParams whose leaves carry a leading
+    (num_envs,) axis.
+
+    ``spec`` maps a key of ``RANDOMIZABLE`` to a fractional half-width f: the
+    field is scaled by an independent per-env factor ~ U(1-f, 1+f), drawn
+    from ``generator`` (one draw of ``num_envs`` values a key, keys in sorted
+    order, on the generator's device). "inertia" scales the J diagonal (and
+    divides J_inv by the same factor), "drag" the (3,) drag_coeff vector; the
+    rest scale the matching scalar field. Geometry is never randomized: it
+    sets the mixer and the spawn grid.
+
+    Only the plant is perturbed. hover_rpm, max_rpm, the thrust and torque
+    caps, gnd_eff_h_clip and gravity stay nominal: they are the flight
+    stack's calibration (the action map ``hover_rpm * (1 + 0.05 a)`` of
+    BaseRLAviary.py:192/224 and the RPM clip), which in a sim2real setting
+    does not know the perturbed plant. Recomputing them from the perturbed
+    m and kf would cancel the perturbation exactly for the RPM-normalized
+    action types (accel = g((1 + 0.05 a)^2 - 1) whatever m and kf), so the
+    randomization would do nothing. Controllers keep nominal parameters for
+    the same reason.
+    """
+    unknown = set(spec) - set(RANDOMIZABLE)
+    if unknown:
+        raise ValueError(f"unknown randomization keys {sorted(unknown)}; "
+                         f"supported: {RANDOMIZABLE}")
+    E = num_envs
+    batched = params.map(lambda x: x.expand((E,) + x.shape).clone())
+    dtype, device = params.m.dtype, params.m.device
+    mult = {}
+    for name in sorted(spec):
+        u = torch.empty(E, dtype=dtype, device=generator.device).uniform_(
+            -1.0, 1.0, generator=generator)
+        mult[name] = 1.0 + float(spec[name]) * u.to(device)
+    rep = {field: getattr(params, field) * mult[field]
+           for field in ("m", "kf", "km", "gnd_eff_coeff", "dw_coeff_1") if field in spec}
+    if "inertia" in spec:
+        j = mult["inertia"][:, None, None]
+        rep.update(J=params.J * j, J_inv=params.J_inv / j)
+    if "drag" in spec:
+        rep.update(drag_coeff=params.drag_coeff * mult["drag"][:, None])
+    return batched.replace(**rep)

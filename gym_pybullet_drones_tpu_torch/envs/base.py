@@ -16,7 +16,7 @@ Every behavioral detail (action pipelines, 20-dim state vector, reward /
 termination rules, the 0.5 s action buffer of RL observations) follows the
 reference (envs/BaseAviary.py, CtrlAviary.py, VelocityAviary.py,
 BaseRLAviary.py, HoverAviary.py, MultiHoverAviary.py). RGB observations come
-with slice 4.
+with ROADMAP item 17.
 """
 
 import dataclasses
@@ -95,7 +95,8 @@ class AviaryConfig:
             raise ValueError("pyb_freq must be a multiple of ctrl_freq (BaseAviary.py:79-80)")
         if self.obs_type == ObservationType.RGB:
             raise NotImplementedError(
-                "RGB observations (the ray-traced camera) come with slice 4")
+                "RGB observations (the ray-traced camera and CnnActorCritic) are not "
+                "ported yet (ROADMAP item 17)")
 
     @property
     def steps_per_ctrl(self) -> int:
@@ -121,6 +122,13 @@ class AviaryConfig:
         if self.action_type == ActionType.PID:
             return 3
         return 1  # ONE_D_RPM / ONE_D_PID
+
+    @property
+    def obs_dim(self) -> int:
+        """Per-drone KIN observation width."""
+        if self.task in (TASK_CTRL, TASK_VELOCITY):
+            return 20
+        return 12 + self.action_buffer_size * self.action_dim
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,9 @@
+from gym_pybullet_drones_tpu_torch.rl.ppo import (
+    ActorCritic,
+    PPOConfig,
+    PPORunnerState,
+    evaluate_policy,
+    make_ppo_train_loop,
+    make_ppo_train_step,
+    ppo_init,
+)

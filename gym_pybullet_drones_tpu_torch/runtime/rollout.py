@@ -7,7 +7,9 @@ relies on through SB3, learn.py:83-95): the obs returned at a done step is the
 new episode's first obs. Time is a Python loop; the hot single-drone velocity
 path has its own kernel (``ops/velocity_rollout.py``).
 
-Domain-randomized (per-env) parameters come with a later slice.
+Domain-randomized params (``core.params.randomize_params``, leaves with a
+leading env axis) step each env with its own plant, through
+``torch.func.vmap`` over the env step as the JAX package vmaps it.
 """
 
 from functools import partial
@@ -33,10 +35,30 @@ class StepOutput(NamedTuple):
     final_obs: torch.Tensor = None
 
 
-def _require_nominal(params):
-    if params.m.ndim > 0:
-        raise NotImplementedError(
-            "per-env (domain-randomized) params come with a later slice")
+def params_are_batched(params) -> bool:
+    """True for per-env randomized params (``core.params.randomize_params``):
+    the mass carries a leading env axis."""
+    return params.m.ndim > 0
+
+
+def nominal_params(params):
+    """Env 0's slice of batched params (identity when unbatched).
+    Randomization never touches geometry, so env 0's spawn grid stands in for
+    the whole batch."""
+    if not params_are_batched(params):
+        return params
+    return params.map(lambda x: x[0])
+
+
+def _leaves(struct):
+    out = []
+    struct.map(lambda t: out.append(t) or t)
+    return out
+
+
+def _rebuild(template, leaves):
+    it = iter(leaves)
+    return template.map(lambda _: next(it))
 
 
 def _broadcast(state: AviaryState, num_envs: int) -> AviaryState:
@@ -48,10 +70,10 @@ def batch_reset(cfg: AviaryConfig, params, num_envs: int, device=None) -> Aviary
     """A batch of ``num_envs`` freshly reset envs (leaves shaped (E, ...)).
 
     The reference reset is deterministic (BaseAviary.py:220-255), so the batch
-    is one initial state repeated. ``device=None`` means the CUDA card.
+    is one initial state repeated. Batched (domain-randomized) params reset
+    from the nominal geometry. ``device=None`` means the CUDA card.
     """
-    _require_nominal(params)
-    params = params.to(resolve_device(device))
+    params = nominal_params(params).to(resolve_device(device))
     return _broadcast(envbase.reset(cfg, params), num_envs)
 
 
@@ -76,10 +98,15 @@ def make_batched_step(cfg: AviaryConfig, params, ctrl_params, target_pos,
     ``reset_on_nan``, a non-finite env is TERMINATED (not truncated) and reset
     instead of propagating NaNs, so a policy that blows up the sim loses its
     future reward rather than receiving a time-limit bootstrap.
+
+    Batched params (``params_are_batched``) give each env its own plant; the
+    controller and task constants stay nominal.
     """
-    _require_nominal(params)
-    vstep = partial(envbase.step, cfg, params, ctrl_params, target_pos)
-    init_state = envbase.reset(cfg, params)
+    if params_are_batched(params):
+        vstep = _per_env_step(cfg, params, ctrl_params, target_pos)
+    else:
+        vstep = partial(envbase.step, cfg, params, ctrl_params, target_pos)
+    init_state = envbase.reset(cfg, nominal_params(params))
     init_obs = envbase.compute_obs(cfg, init_state)
 
     def step(state: AviaryState, action):
@@ -113,6 +140,29 @@ def make_batched_step(cfg: AviaryConfig, params, ctrl_params, target_pos,
         else:
             obs = struct_where(done, init_obs.expand(obs.shape), obs)
         return new_state, StepOutput(obs, reward, term, trunc, final_obs)
+
+    return step
+
+
+def _per_env_step(cfg, params, ctrl_params, target_pos):
+    """``envbase.step`` vmapped over the env axis of params, state and
+    action (JAX's ``jax.vmap(..., in_axes=(0, 0, 0))``): inside the map each
+    env is a single env with its own plant."""
+    p_leaves = _leaves(params)
+    template = nominal_params(params)
+    state_template = envbase.reset(cfg, template)
+
+    def one(p, s, a):
+        state, obs, reward, term, trunc = envbase.step(
+            cfg, _rebuild(template, p), ctrl_params, target_pos,
+            _rebuild(state_template, s), a)
+        return _leaves(state), obs, reward, term, trunc
+
+    mapped = torch.func.vmap(one)
+
+    def step(state, action):
+        leaves, obs, reward, term, trunc = mapped(p_leaves, _leaves(state), action)
+        return _rebuild(state, leaves), obs, reward, term, trunc
 
     return step
 

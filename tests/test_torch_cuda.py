@@ -634,3 +634,64 @@ def test_impulse_step_physics_defaults_to_the_card(cuda):
     state, obs = av.reset()
     state, obs, *_ = av.step(state, -torch.ones((2, 1), device=obs.device))
     assert obs.is_cuda and bool(torch.isfinite(obs).all())
+
+
+def _ppo_hover():
+    from gym_pybullet_drones_tpu_torch.envs.spec import ActionType
+
+    return tbase.AviaryConfig(num_drones=1, task=tbase.TASK_HOVER, ctrl_freq=30,
+                              action_type=ActionType.ONE_D_RPM, action_buffer_size=15,
+                              episode_len_sec=0.5)
+
+
+def test_ppo_train_step_stays_on_the_card_and_repeats(cuda):
+    """ppo_init and the train step without a device run on the card, leave
+    every tensor there, and repeat bit for bit from the same seed (noise,
+    permutations and init from the runner's CUDA generator)."""
+    from gym_pybullet_drones_tpu_torch.rl import ppo as tppo
+
+    cfg = _ppo_hover()
+    ppo_cfg = tppo.PPOConfig(num_envs=32, n_steps=16, minibatch_size=128, n_epochs=2,
+                             log_std_anneal_to=-1.0, log_std_anneal_updates=2)
+    runs = []
+    for _ in range(2):
+        runner, aux = tppo.ppo_init(cfg, ppo_cfg, 11, domain_rand={"m": 0.1})
+        train = tppo.make_ppo_train_step(cfg, ppo_cfg, aux)
+        for _ in range(2):
+            runner, metrics = train(runner)
+        runs.append((runner, metrics))
+    (a, ma), (b, mb) = runs
+    assert a.generator.device.type == "cuda" and aux["train_params_env"].m.is_cuda
+    leaves = []
+    a.env_state.map(lambda t: leaves.append(t) or t)
+    assert all(t.is_cuda for t in leaves + [a.obs, *a.params.parameters(), *ma.values()])
+    for p, q in zip(a.params.parameters(), b.params.parameters()):
+        assert torch.equal(p, q)
+    for k in ma:
+        assert torch.equal(ma[k], mb[k]), k
+    assert torch.equal(a.env_state.kin.pos, b.env_state.kin.pos)
+
+
+def test_randomize_params_and_checkpoints_load_alike_on_the_card(cuda):
+    """randomize_params from one CPU generator state, and a checkpoint's
+    policy, give the CPU's tensors on the card."""
+    import os
+
+    from gym_pybullet_drones_tpu_torch import convert
+    from gym_pybullet_drones_tpu_torch.core.params import drone_params, randomize_params
+
+    spec = {"m": 0.1, "kf": 0.05, "inertia": 0.2, "drag": 0.1}
+    on = randomize_params(torch.Generator().manual_seed(2), drone_params(), 64, spec)
+    off = randomize_params(torch.Generator().manual_seed(2), drone_params(device="cpu"), 64,
+                           spec)
+    got, want = [], []
+    on.map(lambda t: got.append(t) or t)
+    off.map(lambda t: want.append(t) or t)
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "checkpoints", "rpm4_multihover.msgpack")
+    tree = convert.load_flax_msgpack(path)
+    net, ref = convert.actor_critic_from_flax(tree), convert.actor_critic_from_flax(tree, "cpu")
+    for p, q in zip(net.parameters(), ref.parameters()):
+        assert p.is_cuda and torch.equal(p.cpu(), q)

@@ -139,12 +139,12 @@ def test_adjacency_matrix_matches_jax():
 
 
 def test_rgb_and_contact_configs_name_their_slice():
-    """RGB names slice 4. The impulse contact mode steps
+    """RGB names ROADMAP item 17, where the camera comes. The impulse contact mode steps
     tests/test_contact.py:226-241's config (two drones, MultiHover,
     ONE_D_RPM, collisions, the RL landmarks) through the Aviary bundle, 20
     control steps of -0.9, against the JAX package at 1e-10: finite, and the
     grounded drones held on the plane."""
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="item 17"):
         tbase.AviaryConfig(obs_type=tspec.ObservationType.RGB)
     jcfg, tcfg = _configs("multihover", "ONE_D_RPM", 2, 30, 15, collisions=True,
                           contact_mode="impulse")
