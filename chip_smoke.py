@@ -10,7 +10,8 @@ Phases, one or more lines each:
   1. the device, and nvidia-smi's name and power limit;
   2. build every kernel, one nvcc per source started together (K1,
      csrc/velocity_rollout.cu; K2, K4, K5, csrc/wake_pair_kernels.cu; K3, K6,
-     csrc/masked_pair_kernels.cu), and print ptxas's registers and spills,
+     csrc/masked_pair_kernels.cu; K7, csrc/render_views.cu), and print
+     ptxas's registers and spills,
      the units of K2, K4 and K5 and the blocks of K3 and K6 (at each source
      split S) resident per SM;
   3. hold K1 against its plain PyTorch version on the card at E = 4096
@@ -128,6 +129,29 @@ Phases, one or more lines each:
      control steps on one env, the two in two processes at once
      (``python3 chip_smoke.py --eval NAME``), each return, episode count and
      seconds;
+  10b. the pixel path (render/camera.py, K7, the RGB env, CnnActorCritic),
+     float32, TF32 off for matmuls and cuDNN: (a) K7 against its plain
+     version on the card at the CPU tests' render limits (seg equal on 99.9 %
+     of the pixels; where seg agrees rgba within 1, depth within 1e-6), on
+     E = 64 one-drone envs facing the RL landmarks, E = 32 two-drone envs (the
+     mesh proxy), one 12-drone world (the X-frame) and E = 16 envs in
+     BaseAviary's scene: the differing pixels, K7's ms (events) and device
+     ms, the plain version's ms and kernels, both peak memories, and K7's
+     bound (the plain version's operations on one pixel, counted element by
+     element, over the float32 peak; 12 bytes a pixel over the memory rate);
+     (b) scripts/rgb_scratch.py's RGB Hover env (ONE_D_RPM, 240/30 Hz,
+     buffer 15, frame_stack 4) through make_batched_step at E = 64 for 30
+     control steps, the card against the CPU on 8 of the envs (kinematics at
+     tests/test_soa.py:52-59's limits, frames at most 0.1 % of the pixels
+     past 1); (c) one RGB PPO train step at rgb_scratch.py's settings (E =
+     64, n_steps 128, minibatch 1024, target_kl 0.01, det_frac 0.25) after a
+     warm-up one: ms of its halves, env-steps/s, K7's launches (one a control
+     step, counted from 0 over the step), peak memory, and a rollout control
+     step's kernels, busy ms and idle share (torch.profiler); (d) the same
+     with domain_rand {"m": 0.1, "kf": 0.05}, K7 under torch.func.vmap; (e)
+     the five RGB checkpoints at tests/test_checkpoints.py's gates (two over
+     260 control steps, three over 2,600), each in its own ``python3
+     chip_smoke.py --eval NAME`` process, all at once;
   11. one JSON line of kernels (``ms``: CUDA events around the wrapper's
      calls; ``device_ms``: the device time of its kernels and memsets under
      torch.profiler, null if not measured), the nvidia-smi line, and the
@@ -135,6 +159,7 @@ Phases, one or more lines each:
 """
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -170,7 +195,8 @@ from gym_pybullet_drones_tpu_torch.envs.base import (
     compute_obs,
     hover_target_pos,
 )
-from gym_pybullet_drones_tpu_torch.envs.spec import ActionType, Physics
+from gym_pybullet_drones_tpu_torch.core.rotations import euler_xyz_to_quat
+from gym_pybullet_drones_tpu_torch.envs.spec import ActionType, ObservationType, Physics
 from gym_pybullet_drones_tpu_torch.ops import _build, _pairs, collide_pairs, interact_pairs, spatial
 from gym_pybullet_drones_tpu_torch.ops.collide_pairs import (
     collide_cuda,
@@ -195,6 +221,8 @@ from gym_pybullet_drones_tpu_torch.ops.interact_pairs import (
     make_interact,
     make_interact_masked,
 )
+from gym_pybullet_drones_tpu_torch.ops.render_views import KERNEL as RENDER_KERNEL
+from gym_pybullet_drones_tpu_torch.ops.render_views import render_views_cuda
 from gym_pybullet_drones_tpu_torch.ops.swarm_binned import binned_geometry, make_binned_swarm
 from gym_pybullet_drones_tpu_torch.ops.swarm_soa import (
     make_sorted_swarm,
@@ -220,6 +248,8 @@ from gym_pybullet_drones_tpu_torch.ops.velocity_soa import (
     velocity_step_soa,
     velocity_target,
 )
+from gym_pybullet_drones_tpu_torch.render import camera
+from gym_pybullet_drones_tpu_torch.render.meshes import ray_tris
 from gym_pybullet_drones_tpu_torch.rl.ppo import (
     ActorCritic,
     PPOConfig,
@@ -1768,20 +1798,29 @@ EVAL_STEPS = 2600
 
 def checkpoint_eval(name):
     """``python3 chip_smoke.py --eval NAME``: a checkpoint through
-    load_flax_msgpack and evaluate_policy on the card; prints one JSON line."""
-    task, action, n, _ = CHECKPOINT_EVALS[name]
-    cfg = AviaryConfig(num_drones=n, task=task, action_type=action, pyb_freq=240, ctrl_freq=30,
-                       action_buffer_size=15, episode_len_sec=8.0)
+    load_flax_msgpack and evaluate_policy on the card (phase 10 (e) and 10b
+    (e)); prints one JSON line."""
+    if name in RGB_EVALS:
+        n, steps, _, _ = RGB_EVALS[name]
+        cfg = AviaryConfig(**{**RGB_ENV, "num_drones": n,
+                              "task": TASK_HOVER if n == 1 else TASK_MULTIHOVER})
+    else:
+        task, action, n, _ = CHECKPOINT_EVALS[name]
+        steps = EVAL_STEPS
+        cfg = AviaryConfig(num_drones=n, task=task, action_type=action, pyb_freq=240,
+                           ctrl_freq=30, action_buffer_size=15, episode_len_sec=8.0)
+    torch.backends.cudnn.allow_tf32 = False
     root = os.path.dirname(os.path.abspath(__file__))
     net = actor_critic_from_flax(load_flax_msgpack(os.path.join(root, "checkpoints",
                                                                 f"{name}.msgpack")))
     _, aux = ppo_init(cfg, PPOConfig(num_envs=1), 0)
     t0 = time.perf_counter()
-    ret, episodes = evaluate_policy(cfg, aux, net, num_steps=EVAL_STEPS, num_envs=1)
+    ret, episodes = evaluate_policy(cfg, aux, net, num_steps=steps, num_envs=1)
     print(json.dumps(dict(name=name, ret=ret, episodes=episodes,
                           seconds=time.perf_counter() - t0,
                           device=str(next(net.parameters()).device),
-                          env_device=str(aux["params_env"].m.device))))
+                          env_device=str(aux["params_env"].m.device),
+                          k7_launches=render_views_cuda.launches)))
     return 0
 
 
@@ -1952,6 +1991,349 @@ def phase10_ppo(dev):
           "and torch.nn; the evals' processes load no kernel)", flush=True)
 
 
+# Phase 10b: the pixel path. K7 (csrc/render_views.cu) against its plain
+# version (render/camera.render_drone_views_plain) at the limits the CPU
+# tests hold the port to against JAX: seg equal on at least 99.9 % of the
+# pixels; where seg agrees, rgba within 1 and depth within 1e-6. Frames of
+# the env on the card against the CPU: at most 0.1 % of the pixels past 1 in
+# a channel; kinematics at tests/test_soa.py:52-59's limits.
+RENDER_SEG_SHARE, RENDER_RGBA_ATOL, RENDER_DEP_ATOL, FRAME_SHARE = 0.999, 1, 1e-6, 0.001
+RGB_KIN_LIMITS = dict(pos=1e-3, vel=2e-3, quat=1e-3, last_rpm=20.0)
+# scripts/rgb_scratch.py:60-88: the from-scratch pixel PPO's env and settings
+# (its anchor starts only once a probe evaluation clears 250, so a first
+# train step has none).
+RGB_ENV = dict(num_drones=1, task=TASK_HOVER, action_type=ActionType.ONE_D_RPM,
+               obs_type=ObservationType.RGB, pyb_freq=240, ctrl_freq=30,
+               action_buffer_size=15, episode_len_sec=8.0, frame_stack=4)
+RGB_E = 64
+RGB_PPO = dict(num_envs=RGB_E, n_steps=128, minibatch_size=1024, target_kl=0.01,
+               det_frac=0.25)
+RGB_CPU_ENVS = 8  # phase 10b (b): the CPU replays this many of the card's envs
+# (e): the RGB checkpoints, tests/test_checkpoints.py's gates and lengths:
+# name -> (drones, control steps, least return, least episodes)
+RGB_EVALS = {"rgb_hover_fs4": (1, 260, 472.0, 1), "rgb_multihover_fs4": (2, 260, 945.0, 1),
+             "rgb_hover_distilled": (1, 2600, 474.0, 10),
+             "rgb_multihover_distilled": (2, 2600, 949.5, 10),
+             "rgb_hover_scratch_ppo436": (1, 2600, 430.0, 10)}
+RENDER_KERNEL_NAME = "render_kernel"
+# Elementwise operations counted per element for K7's bound (the ray tests'
+# operations on the plain version's pieces).
+_RENDER_OPS = _OPS | {"reciprocal", "floor", "remainder", "eq", "ne", "bitwise_or",
+                      "bitwise_not", "logical_not", "isfinite"}
+
+
+class _ElementOps(TorchDispatchMode):
+    """Counts elementwise operations times the elements each makes."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__
+        if name in _RENDER_OPS or name == "clamp":
+            self.ops += out.numel() if isinstance(out, torch.Tensor) else 1
+        return out
+
+
+def render_ops_per_pixel(pos, quat, arm, cfg):
+    """(operations a pixel, the tests a pixel makes and their operations) of
+    K7 on the first world of ``pos`` / ``quat`` / ``arm`` (the card's
+    tensors): the plain version's elementwise operations on one pixel of
+    camera 0, counted element by element, less the camera drone's own tests,
+    which the plain version computes and masks and K7 skips."""
+    pos1, quat1, arm1 = pos[:1].cpu(), quat[:1].cpu(), arm[:1].cpu()
+    one, ray, two = torch.zeros((1, 3)), torch.tensor([[0.3, 0.5, 0.8]]), torch.ones((1, 3))
+
+    def count(fn):
+        with _ElementOps() as c:
+            fn()
+        return c.ops
+
+    n, eye = pos.shape[1], torch.eye(3)[None]
+    tests = dict(ops_triangle=count(lambda: ray_tris(one, ray, one, ray, two)),
+                 ops_slab=count(lambda: camera._ray_aabb(one, ray, ray)),
+                 ops_sphere=count(lambda: camera._ray_sphere(one, ray, one, 0.25)),
+                 ops_frame=2 * count(lambda: camera._rt_apply(eye, one)))
+    mesh = camera.use_mesh_proxy(cfg, n)
+    own = tests["ops_frame"] + (68 * tests["ops_triangle"] if mesh
+                                else 2 * tests["ops_slab"] + tests["ops_sphere"])
+    pixel = dataclasses.replace(cfg, width=1, height=1)
+    total = count(lambda: camera.render_drone_views_plain(pos1, quat1, arm1, [0], pixel))
+    tests.update(other_drones=n - 1, proxy="mesh" if mesh else "xframe",
+                 landmark_triangles=sum(len(o["mesh"][0]) for o in camera._scene_objects(
+                     cfg.scene) if o["kind"] == "mesh") if cfg.with_landmarks else 0)
+    return total - own, tests
+
+
+def render_case(dev, B, N, seed, spread):
+    """Seeded worlds: (pos (B, N, 3), quat (B, N, 4), arm (B,)) on the card.
+    ``spread`` places the drones: "landmarks" faces each world's first drone
+    toward one of the RL landmarks from 0.4-1.2 m and puts its other drones
+    0.2-0.8 m ahead of it; "line" puts 12 drones on the x axis (the JAX
+    tests' xframe world); "base" faces BaseAviary's obstacles."""
+    rng = np.random.default_rng(seed)
+    arm = np.full(B, 0.0397)
+    if spread == "line":
+        pos = np.stack([np.linspace(0, 3, N), rng.uniform(-0.05, 0.05, N),
+                        rng.uniform(0.25, 0.35, N)], -1)[None].repeat(B, 0)
+        yaw = rng.uniform(-0.3, 0.3, (B, N))
+    else:
+        targets = (np.array([[1.0, 0, 0.1], [0, 1, 0.1], [-1, 0, 0.1], [0, -1, 0.1]])
+                   if spread == "landmarks" else
+                   np.array([[-0.5, -2.5, 0.5], [0.0, 2.0, 0.5], [0.0, -4.0, 1.0],
+                             [-0.5, -0.5, 0.08]]))
+        tgt = targets[np.arange(B) % 4]
+        ang = rng.uniform(-np.pi, np.pi, B)
+        dist = rng.uniform(0.4, 1.2, B)
+        first = tgt + np.stack([dist * np.cos(ang), dist * np.sin(ang),
+                                rng.uniform(0.0, 0.4, B)], -1)
+        heading = ang + np.pi + rng.uniform(-0.3, 0.3, B)
+        pos = np.zeros((B, N, 3))
+        pos[:, 0] = first
+        yaw = np.repeat(heading[:, None], N, 1) + rng.uniform(-0.5, 0.5, (B, N))
+        for j in range(1, N):
+            ahead = rng.uniform(0.2, 0.8, B)
+            pos[:, j] = first + np.stack([ahead * np.cos(heading), ahead * np.sin(heading),
+                                          rng.uniform(-0.15, 0.15, B)], -1)
+    tilt = rng.uniform(-0.15, 0.15, (B, N, 2))
+    quat = np.asarray(euler_xyz_to_quat(torch.as_tensor(
+        np.concatenate([tilt, yaw[..., None]], -1))))
+    return [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in (pos, quat, arm)]
+
+
+def render_gaps(got, want):
+    """(seg-differing pixels, rgba max gap and pixels past 1, depth max gap
+    and pixels past 1e-6, all where seg agrees, pixels)."""
+    same = got[2] == want[2]
+    rgba = (got[0].int() - want[0].int()).abs().amax(-1)[same]
+    dep = (got[1] - want[1]).abs()[same]
+    return dict(seg_differs=int((~same).sum()), rgba_max=int(rgba.max()),
+                rgba_past=int((rgba > RENDER_RGBA_ATOL).sum()), dep_max=float(dep.max()),
+                dep_past=int((dep > RENDER_DEP_ATOL).sum()), pixels=same.numel())
+
+
+def peak_mib(fn):
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def phase10b_render(dev):
+    """(a): K7 against its plain version on the card, timed; returns K7's
+    record at the PPO shape (E = 64 one-drone envs, "rl") and its largest
+    errors."""
+    cases = [("(a1) E=64 x 1 drone, rl", 64, 1, 1, {}, "landmarks"),
+             ("(a2) E=32 x 2 drones, mesh proxy", 32, 2, 2, {}, "landmarks"),
+             ("(a3) one 12-drone world, xframe", 1, 12, 3, {}, "line"),
+             ("(a4) E=16 x 1 drone, base scene", 16, 1, 4, dict(scene="base"), "base")]
+    record, worst = None, dict(seg_share=1.0, rgba_max=0, dep_max=0.0)
+    for name, B, N, seed, extra, spread in cases:
+        cfg = camera.CameraConfig(**extra)
+        pos, quat, arm = render_case(dev, B, N, seed, spread)
+        cam = list(range(N))
+        kernel = lambda: render_views_cuda(pos, quat, arm, cam, cfg)
+        plain = lambda: camera.render_drone_views_plain(pos, quat, arm, cam, cfg)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        gaps = render_gaps(got, want)
+        share = 1.0 - gaps["seg_differs"] / gaps["pixels"]
+        ids = sorted(int(i) for i in torch.unique(got[2]))
+        k_ms = per_pass_ms(kernel, 20, 5)
+        k_dev = device_ms(kernel, 10)
+        p_ms = per_pass_ms(plain, 1, 3)
+        p_launches = len(traced_kernels(plain, 1)[0])
+        k_mem, p_mem = peak_mib(kernel), peak_mib(plain)
+        per_pixel, tests = render_ops_per_pixel(pos, quat, arm, cfg)
+        pixels = gaps["pixels"]
+        flops = per_pixel * pixels
+        nbytes = 12 * pixels + (7 * N + 1) * 4 * B
+        bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+        bound_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES_PER_S \
+            else "bytes"
+        print(f"[10b] {name}: {B * N} cameras, {pixels} pixels, ids {ids}; K7 vs plain: seg "
+              f"differs on {gaps['seg_differs']} pixels (share equal {share:.6f}, limit "
+              f"{RENDER_SEG_SHARE}); where seg agrees rgba max gap {gaps['rgba_max']} "
+              f"({gaps['rgba_past']} pixels past {RENDER_RGBA_ATOL}), depth max gap "
+              f"{gaps['dep_max']:.3g} ({gaps['dep_past']} past {RENDER_DEP_ATOL}); K7 "
+              f"{k_ms:.5f} ms (events, median of 5 x 20), device "
+              f"{'not measured' if k_dev is None else f'{k_dev:.5f} ms'}; plain {p_ms:.3f} ms "
+              f"(events, 3 runs), {p_launches} kernels and memsets; peak memory K7 "
+              f"{k_mem:.2f} MiB, plain {p_mem:.1f} MiB; bound {bound:.5f} ms by {bound_by} "
+              f"({per_pixel} operations a pixel: {json.dumps(tests)}; {flops:.4g} operations, "
+              f"{nbytes} bytes); time/bound {k_ms / bound:.2f}", flush=True)
+        if share < RENDER_SEG_SHARE or gaps["rgba_max"] > RENDER_RGBA_ATOL \
+                or gaps["dep_max"] > RENDER_DEP_ATOL:
+            fail(f"K7 disagrees with its plain version on {name}: {gaps}")
+        if len(ids) < 3:
+            fail(f"{name}: the views show too little of the scene ({ids})")
+        worst = dict(seg_share=min(worst["seg_share"], share),
+                     rgba_max=max(worst["rgba_max"], gaps["rgba_max"]),
+                     dep_max=max(worst["dep_max"], gaps["dep_max"]))
+        if record is None:
+            record = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, plain_launches=p_launches,
+                          bound_ms=bound, bound_by=bound_by, peak_mib=k_mem,
+                          plain_peak_mib=p_mem)
+    return record, worst
+
+
+def frames_past(a, b):
+    """Frame pixels past 1 in a channel, and pixels."""
+    gap = (a.int() - b.int()).abs().amax(-1)
+    return int((gap > 1).sum()), gap.numel()
+
+
+def phase10b_env(dev):
+    """(b): the RGB Hover env through make_batched_step, E = 64, 30 control
+    steps, the card against the CPU on the first RGB_CPU_ENVS envs."""
+    cfg = AviaryConfig(**RGB_ENV)
+    acts = torch.as_tensor(np.random.default_rng(5).uniform(-0.6, 0.8, (30, RGB_E, 1, 1)),
+                           dtype=torch.float32)
+    runs = {}
+    for key, d, E in (("cuda", dev, RGB_E), ("cpu", torch.device("cpu"), RGB_CPU_ENVS)):
+        params = build_params(cfg, d)
+        step = make_batched_step(cfg, params, build_ctrl_params(cfg, d),
+                                 hover_target_pos(cfg, params))
+        state = batch_reset(cfg, params, E, device=d)
+        trace, t0 = [], time.perf_counter()
+        for a in acts:
+            state, out = step(state, a[:E].to(d))
+            trace.append(dict(frames=out.obs[:RGB_CPU_ENVS].cpu(), reward=out.reward.cpu(),
+                              **{k: getattr(state.kin, k)[:RGB_CPU_ENVS].cpu()
+                                 for k in ("pos", "vel", "quat")},
+                              last_rpm=state.last_rpm[:RGB_CPU_ENVS].cpu()))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        runs[key] = (trace, time.perf_counter() - t0)
+    worst, past, pixels = {k: 0.0 for k in RGB_KIN_LIMITS}, 0, 0
+    for t, (c, p) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+        for k in RGB_KIN_LIMITS:
+            worst[k] = max(worst[k], float((c[k] - p[k]).abs().max()))
+        n_past, n = frames_past(c["frames"], p["frames"])
+        past, pixels = past + n_past, pixels + n
+        if n_past > FRAME_SHARE * n:
+            fail(f"(b) frames on the card differ from the CPU at step {t + 1}: {n_past} of {n}")
+    rewards = torch.stack([c["reward"] for c in runs["cuda"][0]])
+    print(f"[10b] (b) RGB Hover env (rgb_scratch.py: ONE_D_RPM, 240/30 Hz, buffer 15, "
+          f"frame_stack 4) through make_batched_step, E={RGB_E}, 30 control steps: card "
+          f"{runs['cuda'][1]:.2f} s, CPU ({RGB_CPU_ENVS} envs) {runs['cpu'][1]:.2f} s; card vs "
+          f"CPU max gaps " + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()})
+          + f" (limits {json.dumps(RGB_KIN_LIMITS)}); frame pixels past 1: {past} of "
+          f"{pixels}; rewards finite {bool(torch.isfinite(rewards).all())}", flush=True)
+    for k, v in worst.items():
+        if not v <= RGB_KIN_LIMITS[k]:
+            fail(f"(b) the RGB env on the card differs from the CPU in {k}: {v}")
+
+
+def rgb_ppo_step(what, domain_rand=None):
+    """(c) / (d): one RGB train step after a warm-up one; K7's launches over
+    the measured step (counts set to 0 just before it)."""
+    cfg = AviaryConfig(**RGB_ENV)
+    ppo_cfg = PPOConfig(**RGB_PPO)
+    runner, aux = ppo_init(cfg, ppo_cfg, 2, domain_rand=domain_rand)
+    train = make_ppo_train_step(cfg, ppo_cfg, aux)
+    times = []
+    for i in range(2):
+        if i == 1:
+            render_views_cuda.launches = 0
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        runner, rollout = train.collect(runner)
+        ev[1].record()
+        runner, metrics = train.update(runner, rollout)
+        ev[2].record()
+        ev[2].synchronize()
+        times.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+    launches = render_views_cuda.launches
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v))]
+    if bad or not on_card(runner.env_state) or runner.obs.dtype != torch.uint8:
+        fail(f"{what}: metrics {bad} not finite, or the env state or obs left the card or uint8")
+    if launches != ppo_cfg.n_steps:
+        fail(f"{what}: K7 launched {launches} times in a train step of {ppo_cfg.n_steps} "
+             "control steps")
+    step_env = make_batched_step(cfg, aux.get("train_params_env", aux["params_env"]),
+                                 aux["ctrl_params"], aux["target_pos"])
+    holder = [runner.env_state, runner.obs]
+
+    def one():
+        with torch.no_grad():
+            holder[0], out, _ = rollout_step(runner.params, step_env, holder[0], holder[1],
+                                             runner.generator, 0, (1, 1))
+        holder[1] = out.obs
+
+    step_ms = per_pass_ms(one, 8, 3)
+    kernels, wall = traced_kernels(one, 2)
+    if not kernels:
+        fail(f"{what}: torch.profiler saw no kernel on the card")
+    busy, end = 0.0, -math.inf
+    for e in kernels:
+        lo, hi = e["ts"], e["ts"] + e["dur"]
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    busy_ms = busy / 1e3 / 2
+    k7_ms = sum(e["dur"] for e in kernels if RENDER_KERNEL_NAME in e["name"]) / 1e3 / 2
+    (roll, upd), total = times[1], sum(times[1])
+    print(f"[10b] {what}: E={RGB_E}, n_steps={ppo_cfg.n_steps}, {ppo_cfg.num_minibatches} "
+          f"minibatches of {ppo_cfg.resolved_minibatch_size} x {ppo_cfg.n_epochs} epochs, TF32 "
+          f"off: train step {total:.1f} ms = rollout {roll:.1f} ({roll / ppo_cfg.n_steps:.3f} a "
+          f"control step) + update {upd:.1f} ms (CUDA events; warm-up {times[0][0]:.1f} + "
+          f"{times[0][1]:.1f}), {RGB_E * ppo_cfg.n_steps / (total / 1e3):.6g} env-steps/s; K7 "
+          f"launches in the step {launches}; peak memory over the step {peak:.1f} MiB; a "
+          f"rollout control step alone {step_ms:.3f} ms (events, median of 3 x 8), under "
+          f"torch.profiler {len(kernels) / 2:.0f} kernels and memsets, card busy {busy_ms:.4f} "
+          f"ms (K7 {k7_ms:.4f}), idle share {1.0 - busy_ms / step_ms:.4f}, host wall "
+          f"{wall * 1e3 / 2:.2f} ms; metrics "
+          + json.dumps({k: float(f"{float(v):.6g}") for k, v in metrics.items()}), flush=True)
+    return launches
+
+
+def phase10b_pixels(dev):
+    """The pixel path: K7, the RGB env, RGB PPO, the five RGB checkpoints."""
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: the pixel path runs in full float32")
+    record, worst = phase10b_render(dev)
+    phase10b_env(dev)
+    launches = rgb_ppo_step("(c) nominal")
+    rgb_ppo_step("(d) domain_rand m 0.1, kf 0.05", {"m": 0.1, "kf": 0.05})
+    procs = {name: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--eval", name],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name in RGB_EVALS}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                fail(f"(e) {name}: the eval exited {proc.returncode}: {err[-2000:]}")
+            res = json.loads(out.strip().splitlines()[-1])
+            _, steps, gate, episodes = RGB_EVALS[name]
+            print(f"[10b] (e) {name}: mean return {res['ret']:.5f} over {res['episodes']} "
+                  f"episodes ({steps} control steps, one env, policy on {res['device']}, env on "
+                  f"{res['env_device']}, K7 launches {res['k7_launches']}), gate {gate}, "
+                  f"{res['seconds']:.1f} s", flush=True)
+            if res["device"] != "cuda:0" or res["env_device"] != "cuda:0" \
+                    or res["k7_launches"] < steps:
+                fail(f"(e) {name} did not run on the card through K7")
+            if not (res["episodes"] >= episodes and res["ret"] >= gate):
+                fail(f"(e) {name}: {res['ret']} over {res['episodes']} episodes, under {gate}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"[10b] phase 10b: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(record, launches=launches, max_abs_err=worst["dep_max"],
+                rgba_max_gap=worst["rgba_max"], seg_equal_share=worst["seg_share"])
+
+
 def main():
     # ---------------- 1. device ----------------
     if not torch.cuda.is_available():
@@ -1965,7 +2347,7 @@ def main():
 
     # ---------------- 2. build ----------------
     t0 = time.perf_counter()
-    sources = (KERNEL, _pairs.UNIT_KERNEL, _pairs.MASKED_KERNEL)
+    sources = (KERNEL, _pairs.UNIT_KERNEL, _pairs.MASKED_KERNEL, RENDER_KERNEL)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
         list(pool.map(_build.build, sources))
     print(f"[2] built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2159,6 +2541,9 @@ def main():
     # ---------------- 10. PPO ----------------
     phase10_ppo(dev)
 
+    # ---------------- 10b. the pixel path ----------------
+    k7 = phase10b_pixels(dev)
+
     # ---------------- 11. result ----------------
     kernels = [{
         "name": f"K1 {KERNEL}", "route": "cuda",
@@ -2190,6 +2575,13 @@ def main():
             **masked_times[pid], "library_ms": None,
             "max_abs_err": max(pair_errs[pid], masked_times[pid]["max_abs_err"]),
         })
+    if k7["launches"] == 0:
+        fail("the pixel path's train step never launched K7")
+    kernels.append({
+        "name": f"K7 {RENDER_KERNEL}", "route": "cuda",
+        "source": "gym_pybullet_drones_tpu_torch/csrc/render_views.cu",
+        "replaces": "gym_pybullet_drones_tpu/render/camera.py:177", **k7, "library_ms": None,
+    })
     kernels.sort(key=lambda k: k["name"])
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):

@@ -3,7 +3,8 @@ main path; slice 2: the coupled swarm's SoA, sorted and binned backends;
 slice 3: the sequential-impulse contact solver, ``contact_mode="impulse"``;
 slice 4: PPO and the BC warm start, ``rl/``, with domain-randomized params,
 ``core.params.randomize_params``, and the checkpoints read by
-``convert.load_flax_msgpack``).
+``convert.load_flax_msgpack``; slice 6: the pixel path, the onboard camera
+``render/`` with its kernel K7, RGB observations and ``CnnActorCritic``).
 
 The JAX package ``gym_pybullet_drones_tpu`` stays the reference; this package
 never imports it or JAX. Entry points run on the CUDA card unless the caller

@@ -54,12 +54,15 @@ class TensorStruct:
 
 def struct_where(mask, a, b):
     """Select struct ``a`` where the per-env bool ``mask`` holds, else ``b``;
-    ``mask`` broadcasts over each leaf's trailing dims."""
+    ``mask`` broadcasts over each leaf's trailing dims. A ``None`` leaf (a
+    field the config does not use) stays ``None``."""
 
     def sel(x, y):
         m = mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim))
         return torch.where(m, x, y)
 
+    if a is None:
+        return None
     if isinstance(a, torch.Tensor):
         return sel(a, b)
     return type(a)(**{f.name: struct_where(mask, getattr(a, f.name), getattr(b, f.name))

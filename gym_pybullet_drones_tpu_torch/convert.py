@@ -10,8 +10,8 @@ with a leading env axis.
 Policy weights come across as flax writes them: ``load_flax_msgpack`` reads a
 ``flax.serialization.to_bytes`` file (``checkpoints/*.msgpack``) with a
 decoder of its own, and ``actor_critic_from_flax`` / ``actor_critic_to_flax``
-map the tree to and from the port's ``ActorCritic``. This module imports no
-JAX, flax or msgpack.
+map the tree to and from the port's ``ActorCritic`` or ``CnnActorCritic``.
+This module imports no JAX, flax or msgpack.
 """
 
 import dataclasses
@@ -25,7 +25,7 @@ from gym_pybullet_drones_tpu_torch.control.dsl_pid import DSLPIDParams, DSLPIDSt
 from gym_pybullet_drones_tpu_torch.core.dynamics import KinState
 from gym_pybullet_drones_tpu_torch.core.params import DroneParams
 from gym_pybullet_drones_tpu_torch.envs.base import AviaryState
-from gym_pybullet_drones_tpu_torch.rl.ppo import ActorCritic
+from gym_pybullet_drones_tpu_torch.rl.ppo import ActorCritic, CnnActorCritic
 
 _KIN = tuple(f.name for f in dataclasses.fields(KinState))
 _CTRL = tuple(f.name for f in dataclasses.fields(DSLPIDState))
@@ -191,33 +191,59 @@ def load_flax_msgpack(path) -> dict:
     return tree
 
 
-def actor_critic_from_flax(params: dict, device=None) -> ActorCritic:
-    """An ``ActorCritic`` holding a flax ``ActorCritic``'s parameters
-    (``{"params": {"Dense_0": ..., "log_std": ...}}``): ``Dense_0`` ..
-    ``Dense_{h-1}`` the pi tower, ``Dense_h`` the mean head, the next h the vf
-    tower and the last the value head. A flax kernel is (in, out), a Linear
-    weight its transpose. The widths come from the shapes."""
+def _dense_layers(net):
+    """The Linear layers of a policy in flax's ``Dense_i`` order: for a
+    CnnActorCritic the 512 feature layer first, then (both kinds) the pi
+    tower, the mean head, the vf tower and the value head."""
+    heads = net.heads if isinstance(net, CnnActorCritic) else net
+    first = [net.feat] if isinstance(net, CnnActorCritic) else []
+    return first + [*heads.pi, heads.mean, *heads.vf, heads.value]
+
+
+def actor_critic_from_flax(params: dict, device=None):
+    """The port's policy holding a flax ``ActorCritic``'s or
+    ``CnnActorCritic``'s parameters (``{"params": {"Dense_0": ...,
+    "log_std": ...}}``; a tree with ``Conv_0`` is a CnnActorCritic).
+
+    ``Dense_*`` in order: for the CNN, ``Dense_0`` the 512 feature layer
+    (its input flattened in NHWC order, as the port's module flattens too);
+    then h layers of the pi tower, the mean head, h of the vf tower and the
+    value head. A flax kernel is (in, out), a Linear weight its transpose; a
+    flax conv kernel is HWIO, a Conv2d weight OIHW. The widths, the drones and
+    the frame stack come from the shapes."""
     tree = params["params"]
-    if any(k.startswith("Conv") for k in tree):
-        raise NotImplementedError("CnnActorCritic (RGB observations) comes with ROADMAP item 17")
+    cnn = "Conv_0" in tree
     dense = [tree[f"Dense_{i}"] for i in range(sum(k.startswith("Dense_") for k in tree))]
-    h = (len(dense) - 2) // 2
-    hidden = tuple(int(d["kernel"].shape[1]) for d in dense[:h])
-    net = ActorCritic(int(dense[0]["kernel"].shape[0]), int(dense[h]["kernel"].shape[1]),
-                      hidden, device=device)
-    layers = [*net.pi, net.mean, *net.vf, net.value]
+    heads = dense[1:] if cnn else dense
+    h = (len(heads) - 2) // 2
+    hidden = tuple(int(d["kernel"].shape[1]) for d in heads[:h])
+    act_dim = int(heads[h]["kernel"].shape[1])
+    if cnn:
+        n_drones = int(heads[0]["kernel"].shape[0]) // CnnActorCritic.FEATURES
+        in_channels = int(tree["Conv_0"]["kernel"].shape[2])
+        net = CnnActorCritic(n_drones, in_channels, act_dim, hidden, device=device)
+    else:
+        net = ActorCritic(int(heads[0]["kernel"].shape[0]), act_dim, hidden, device=device)
     with torch.no_grad():
-        for layer, d in zip(layers, dense):
+        if cnn:
+            for i, conv in enumerate(net.convs):
+                conv.weight.copy_(torch.as_tensor(
+                    np.array(tree[f"Conv_{i}"]["kernel"]).transpose(3, 2, 0, 1)))
+                conv.bias.copy_(torch.as_tensor(np.array(tree[f"Conv_{i}"]["bias"])))
+        for layer, d in zip(_dense_layers(net), dense):
             layer.weight.copy_(torch.as_tensor(np.array(d["kernel"]).T))
             layer.bias.copy_(torch.as_tensor(np.array(d["bias"])))
         net.log_std.copy_(torch.as_tensor(np.array(tree["log_std"])))
     return net
 
 
-def actor_critic_to_flax(module: ActorCritic) -> dict:
+def actor_critic_to_flax(module) -> dict:
     """The flax tree of ``actor_critic_from_flax``, as numpy arrays."""
-    layers = [*module.pi, module.mean, *module.vf, module.value]
     tree = {f"Dense_{i}": {"bias": _np(layer.bias), "kernel": _np(layer.weight).T.copy()}
-            for i, layer in enumerate(layers)}
+            for i, layer in enumerate(_dense_layers(module))}
+    if isinstance(module, CnnActorCritic):
+        for i, conv in enumerate(module.convs):
+            tree[f"Conv_{i}"] = {"bias": _np(conv.bias),
+                                 "kernel": _np(conv.weight).transpose(2, 3, 1, 0).copy()}
     tree["log_std"] = _np(module.log_std)
     return {"params": tree}

@@ -15,8 +15,9 @@ env of more than 16 drones takes the neighbor pair rows, env by env.
 Every behavioral detail (action pipelines, 20-dim state vector, reward /
 termination rules, the 0.5 s action buffer of RL observations) follows the
 reference (envs/BaseAviary.py, CtrlAviary.py, VelocityAviary.py,
-BaseRLAviary.py, HoverAviary.py, MultiHoverAviary.py). RGB observations come
-with ROADMAP item 17.
+BaseRLAviary.py, HoverAviary.py, MultiHoverAviary.py). RGB observations are
+the onboard cameras' frames (``render/camera.py``; K7 on the card), captured
+at the reference's 24 FPS cadence and held in between.
 """
 
 import dataclasses
@@ -49,6 +50,7 @@ from gym_pybullet_drones_tpu_torch.envs.spec import (
     ObservationType,
     Physics,
 )
+from gym_pybullet_drones_tpu_torch.render.camera import CameraConfig, render_drone_views
 
 # Task identifiers (reward/termination/truncation rules)
 TASK_CTRL = "ctrl"  # CtrlAviary: dummy reward -1, never done (CtrlAviary.py:144-200)
@@ -59,7 +61,7 @@ TASK_MULTIHOVER = "multihover"  # MultiHoverAviary.py:75-145
 
 @dataclasses.dataclass(frozen=True)
 class AviaryConfig:
-    """Static environment configuration (the KIN subset of the JAX config)."""
+    """Static environment configuration (the JAX package's, field for field)."""
 
     drone_model: DroneModel = DroneModel.CF2X
     num_drones: int = 1
@@ -86,6 +88,11 @@ class AviaryConfig:
     # own scene, BaseAviary._addObstacles :958-981).
     obstacles: bool = True
     obstacle_scene: str = "rl"
+    # RGB frame stacking, channel-wise: the held frames keep the last K
+    # captures as (N, H, W, 4K). K = 1 is the reference's single frame
+    # (BaseRLAviary.py:293-306); one 24 FPS frame carries no velocity, so
+    # pixel-only training stacks K > 1.
+    frame_stack: int = 1
     # Renormalize quaternions every substep (the reference's DYN pipeline
     # never does, so parity tests disable this).
     renormalize_quat: bool = True
@@ -93,10 +100,6 @@ class AviaryConfig:
     def __post_init__(self):
         if self.pyb_freq % self.ctrl_freq != 0:
             raise ValueError("pyb_freq must be a multiple of ctrl_freq (BaseAviary.py:79-80)")
-        if self.obs_type == ObservationType.RGB:
-            raise NotImplementedError(
-                "RGB observations (the ray-traced camera and CnnActorCritic) are not "
-                "ported yet (ROADMAP item 17)")
 
     @property
     def steps_per_ctrl(self) -> int:
@@ -130,6 +133,13 @@ class AviaryConfig:
             return 20
         return 12 + self.action_buffer_size * self.action_dim
 
+    @property
+    def img_capture_freq(self) -> int:
+        """Physics substeps between onboard-camera captures: the reference
+        grabs frames at 24 FPS of sim time and holds them in between
+        (BaseAviary.py:135-136; the gate, BaseRLAviary.py:294), at least 1."""
+        return max(1, int(self.pyb_freq / 24))
+
 
 @dataclasses.dataclass(frozen=True)
 class AviaryState(TensorStruct):
@@ -140,6 +150,10 @@ class AviaryState(TensorStruct):
     ctrl: DSLPIDState  # (..., N, 3) leaves; zeros when unused
     action_buffer: torch.Tensor  # (..., B, N, A) raw actions, oldest first; B may be 0
     step_count: torch.Tensor  # int32 (...), counts pyb substeps (BaseAviary.py:382)
+    # The held onboard-camera frames (..., N, 48, 64, 4 * frame_stack) uint8,
+    # refreshed every img_capture_freq substeps (BaseRLAviary.py:293-306);
+    # None for KIN configs.
+    rgb_frames: Optional[torch.Tensor] = None
 
 
 def default_init_xyzs(cfg: AviaryConfig, params: DroneParams) -> np.ndarray:
@@ -175,6 +189,15 @@ def _initial_pose(cfg: AviaryConfig, params: DroneParams):
     return xyzs, rpys
 
 
+def _render_frames(cfg: AviaryConfig, kin: KinState, params: DroneParams):
+    """Fresh onboard-camera frames (..., N, 48, 64, 4) uint8 from ``kin``."""
+    rgba, _, _ = render_drone_views(
+        kin.pos, kin.quat, params.arm,
+        CameraConfig(with_landmarks=cfg.obstacles, scene=cfg.obstacle_scene,
+                     frame_angle_deg=0.0 if cfg.drone_model == DroneModel.CF2P else 45.0))
+    return rgba
+
+
 def reset(cfg: AviaryConfig, params: DroneParams) -> AviaryState:
     """Fresh episode state on the params' device (the reference reset is
     deterministic, BaseAviary.py:220-255)."""
@@ -183,6 +206,11 @@ def reset(cfg: AviaryConfig, params: DroneParams) -> AviaryState:
     quats = euler_xyz_to_quat(torch.as_tensor(rpys, dtype=dtype, device=device))
     kin = init_kin_state(torch.as_tensor(xyzs, dtype=dtype, device=device), quats)
     n = cfg.num_drones
+    rgb_frames = None
+    if cfg.obs_type == ObservationType.RGB:
+        # reset's obs captures at once (step_counter 0 passes the gate); a
+        # K-stack starts as the first capture K times.
+        rgb_frames = _render_frames(cfg, kin, params).repeat(1, 1, 1, cfg.frame_stack)
     return AviaryState(
         kin=kin,
         last_rpm=torch.zeros((n, 4), dtype=dtype, device=device),
@@ -190,6 +218,7 @@ def reset(cfg: AviaryConfig, params: DroneParams) -> AviaryState:
         action_buffer=torch.zeros((cfg.action_buffer_size, n, cfg.action_dim),
                                   dtype=dtype, device=device),
         step_count=torch.zeros((), dtype=torch.int32, device=device),
+        rgb_frames=rgb_frames,
     )
 
 
@@ -281,6 +310,10 @@ def drone_state_vector(cfg: AviaryConfig, state: AviaryState):
 def compute_obs(cfg: AviaryConfig, state: AviaryState):
     if cfg.task in (TASK_CTRL, TASK_VELOCITY):
         return drone_state_vector(cfg, state)  # (..., N, 20)
+    if cfg.obs_type == ObservationType.RGB:
+        # The held frames (BaseRLAviary._computeObs RGB path, :293-306),
+        # refreshed by step() on img_capture_freq boundaries only.
+        return state.rgb_frames  # (..., N, 48, 64, 4K) uint8
     # RL KIN obs: 12-dim kinematics + flattened action buffer, oldest first
     # (BaseRLAviary._computeObs, :307-319)
     full = drone_state_vector(cfg, state)
@@ -423,6 +456,21 @@ def step(
         ctrl=new_ctrl,
         step_count=state.step_count + cfg.steps_per_ctrl,
     )
+    if cfg.obs_type == ObservationType.RGB:
+        # The capture gate reads the PRE-increment counter (obs computed at
+        # BaseAviary.py:376, counter advanced at :382) and renders from the
+        # post-physics kinematics; frames are held in between. Each env
+        # renders and selects on its own flag (envs differ in phase after
+        # auto-resets), JAX's semantics under vmap: no host sync. The frames
+        # are new tensors, so an obs handed out earlier never changes.
+        pre_count = state.step_count - cfg.steps_per_ctrl
+        capture = torch.remainder(pre_count, cfg.img_capture_freq) == 0
+        fresh = _render_frames(cfg, kin, params)
+        if cfg.frame_stack > 1:
+            # channel-wise ring: drop the oldest capture, append the newest
+            fresh = torch.cat([state.rgb_frames[..., 4:], fresh], -1)
+        mask = capture.reshape(capture.shape + (1,) * (fresh.ndim - capture.ndim))
+        state = state.replace(rgb_frames=torch.where(mask, fresh, state.rgb_frames))
     obs = compute_obs(cfg, state)
     reward = compute_reward(cfg, state, target_pos)
     terminated = compute_terminated(cfg, state, target_pos)

@@ -30,9 +30,10 @@ def _flags(fmad: bool):
 # K2, K4, K5 (wake_pair_kernels) and K3, K6 (masked_pair_kernels) contract
 # multiply-adds into FMAs: fewer instructions a pair. The wake is held to
 # tolerances; the contact term rounds each step itself (csrc/pair_terms.cuh),
-# so K4 still equals its plain version bit for bit.
+# so K4 still equals its plain version bit for bit. K7 (render_views) follows
+# its plain version's rounding: -fmad=false.
 NVCC_FLAGS = {"velocity_rollout": _flags(fmad=False), "wake_pair_kernels": _flags(fmad=True),
-              "masked_pair_kernels": _flags(fmad=True)}
+              "masked_pair_kernels": _flags(fmad=True), "render_views": _flags(fmad=False)}
 
 
 def _nvcc() -> str:

@@ -1,5 +1,6 @@
 from gym_pybullet_drones_tpu_torch.rl.ppo import (
     ActorCritic,
+    CnnActorCritic,
     PPOConfig,
     PPORunnerState,
     evaluate_policy,

@@ -13,9 +13,13 @@ grad norm 0.5.
 Every draw (init, policy noise, epoch permutations) comes from the runner's
 ``torch.Generator``; nothing touches the global RNG. A CUDA generator and a
 CPU generator give different streams. Matrix products run in full float32:
-leave ``torch.backends.cuda.matmul.allow_tf32`` off (PyTorch's default).
+leave ``torch.backends.cuda.matmul.allow_tf32`` off (PyTorch's default),
+and for the pixel policy's convolutions turn ``torch.backends.cudnn.allow_tf32``
+off as well (PyTorch's default is on).
 
-The pixel policy (``CnnActorCritic``) comes with the camera, ROADMAP item 17.
+RGB configs train ``CnnActorCritic`` (SB3's CnnPolicy: NatureCNN features per
+drone, then ActorCritic's heads) on the held camera frames, which the rollout
+keeps as uint8.
 """
 
 import dataclasses
@@ -45,6 +49,18 @@ def _dense(n_in, n_out, gain, generator, device):
         nn.init.orthogonal_(layer.weight, gain, generator=generator)
         layer.bias.zero_()
     return layer
+
+
+# flax's truncated normal draws in [-2, 2] and divides its std by this, the
+# std of a unit normal truncated there (jax.nn.initializers.variance_scaling).
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_normal_(weight, fan_in, generator):
+    """flax's default kernel init: a normal truncated at two std, of
+    variance 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
 class ActorCritic(nn.Module):
@@ -80,6 +96,62 @@ class ActorCritic(nn.Module):
         for layer in self.vf:
             v = torch.tanh(layer(v))
         return self.mean(x), self.log_std, self.value(v).squeeze(-1)
+
+
+class CnnActorCritic(nn.Module):
+    """SB3-CnnPolicy-equivalent actor-critic for RGB observations.
+
+    ``forward(obs)`` takes (E, N, H, W, C) uint8 frames (C = 4 x frame_stack),
+    scales them by 1/255 and passes each drone's frames through NatureCNN
+    (32 8x8 stride 4, 64 4x4 stride 2, 64 3x3 stride 1, VALID, ReLU; 48 x 64
+    comes out as 2 x 4 x 64 = 512, flattened in NHWC order as flax does),
+    a 512-wide ReLU layer, then concatenates the drones' features into
+    ``heads``, an ``ActorCritic``. Returns ``(mean (E, A), log_std (A,),
+    value (E,))``. The convolutions and the 512 layer take flax's default
+    init (lecun normal, zero biases), the heads ActorCritic's, all from
+    ``generator``.
+    """
+
+    FEATURES = 512
+    # (out channels, kernel, stride) of NatureCNN
+    LAYERS = ((32, 8, 4), (64, 4, 2), (64, 3, 1))
+    FRAME = (48, 64)  # the onboard camera's frame (BaseRLAviary.py:34)
+
+    def __init__(self, num_drones: int, in_channels: int, action_dim: int,
+                 hidden: Sequence[int] = (64, 64), log_std_init: float = 0.0,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.convs = nn.ModuleList()
+        c, (h, w) = in_channels, self.FRAME
+        for out, k, stride in self.LAYERS:
+            conv = nn.utils.skip_init(nn.Conv2d, c, out, k, stride, device=device)
+            with torch.no_grad():
+                _lecun_normal_(conv.weight, c * k * k, generator)
+                conv.bias.zero_()
+            self.convs.append(conv)
+            c, h, w = out, (h - k) // stride + 1, (w - k) // stride + 1
+        flat = c * h * w
+        self.feat = nn.utils.skip_init(nn.Linear, flat, self.FEATURES, device=device)
+        with torch.no_grad():
+            _lecun_normal_(self.feat.weight, flat, generator)
+            self.feat.bias.zero_()
+        self.heads = ActorCritic(num_drones * self.FEATURES, action_dim, hidden, log_std_init,
+                                 generator, device)
+
+    @property
+    def log_std(self):
+        return self.heads.log_std
+
+    def forward(self, obs):
+        E, N = obs.shape[0], obs.shape[1]
+        x = obs.to(torch.float32).reshape((E * N,) + obs.shape[2:]) / 255.0
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW (a view: channels-last memory)
+        for conv in self.convs:
+            x = torch.relu(conv(x))
+        x = x.permute(0, 2, 3, 1).reshape(E * N, -1)  # flax flattens NHWC
+        x = torch.relu(self.feat(x))
+        return self.heads(x.reshape(E, -1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,7 +232,7 @@ class PPORunnerState:
     (its Adam) are updated in place by the train step; ``generator`` draws the
     policy noise and the epoch permutations."""
 
-    params: ActorCritic
+    params: nn.Module  # ActorCritic, or CnnActorCritic for RGB configs
     opt_state: torch.optim.Adam
     env_state: AviaryState
     obs: torch.Tensor
@@ -211,10 +283,9 @@ def ppo_init(env_cfg: AviaryConfig, ppo_cfg: PPOConfig, generator_or_seed,
     seed for one. ``domain_rand`` is an optional ``randomize_params`` spec
     (e.g. ``{"m": 0.1, "kf": 0.05}``): each training env then steps its own
     perturbed plant (``aux["train_params_env"]``), while evaluation and the
-    controller stay nominal. ``device=None`` means the CUDA card.
+    controller stay nominal. ``device=None`` means the CUDA card. RGB configs
+    get a ``CnnActorCritic`` on (48, 64, 4 x frame_stack) frames.
     """
-    if env_cfg.obs_type == ObservationType.RGB:
-        raise NotImplementedError("CnnActorCritic (RGB observations) comes with ROADMAP item 17")
     device = resolve_device(device)
     params_env = envbase.build_params(env_cfg, device) if params_env is None else params_env
     if ctrl_params is None:
@@ -222,9 +293,13 @@ def ppo_init(env_cfg: AviaryConfig, ppo_cfg: PPOConfig, generator_or_seed,
     if target_pos is None:
         target_pos = envbase.hover_target_pos(env_cfg, params_env)
     generator = _generator(generator_or_seed, device)
-    network = ActorCritic(env_cfg.num_drones * env_cfg.obs_dim,
-                          env_cfg.num_drones * env_cfg.action_dim, ppo_cfg.hidden,
-                          ppo_cfg.log_std_init, generator, device)
+    act_dim = env_cfg.num_drones * env_cfg.action_dim
+    if env_cfg.obs_type == ObservationType.RGB:
+        network = CnnActorCritic(env_cfg.num_drones, 4 * env_cfg.frame_stack, act_dim,
+                                 ppo_cfg.hidden, ppo_cfg.log_std_init, generator, device)
+    else:
+        network = ActorCritic(env_cfg.num_drones * env_cfg.obs_dim, act_dim, ppo_cfg.hidden,
+                              ppo_cfg.log_std_init, generator, device)
     opt = torch.optim.Adam(network.parameters(), lr=ppo_cfg.learning_rate, eps=1e-5)
     env_state = batch_reset(env_cfg, params_env, ppo_cfg.num_envs, device=device)
     runner = PPORunnerState(

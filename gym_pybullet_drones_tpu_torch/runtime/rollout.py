@@ -9,7 +9,10 @@ path has its own kernel (``ops/velocity_rollout.py``).
 
 Domain-randomized params (``core.params.randomize_params``, leaves with a
 leading env axis) step each env with its own plant, through
-``torch.func.vmap`` over the env step as the JAX package vmaps it.
+``torch.func.vmap`` over the env step as the JAX package vmaps it; the RGB
+configs' camera renders the whole batch in one call there too (its operator's
+batching rule, ``ops/render_views.py``). The held RGB frames reset with the
+state, from the nominal initial pose; the action buffer persists.
 """
 
 from functools import partial
@@ -134,7 +137,8 @@ def make_batched_step(cfg: AviaryConfig, params, ctrl_params, target_pos,
         new_state = new_state.replace(action_buffer=persisted_buffer)
         final_obs = obs
         if cfg.action_buffer_size > 0:
-            # Post-reset KIN obs = fresh kinematics + the persisted buffer
+            # Post-reset KIN obs = fresh kinematics + the persisted buffer (an
+            # RGB obs is the reset state's frames, the initial capture)
             reset_obs = envbase.compute_obs(cfg, new_state)
             obs = struct_where(done, reset_obs, obs)
         else:

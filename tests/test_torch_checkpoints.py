@@ -1,7 +1,8 @@
 """The committed checkpoints (checkpoints/*.msgpack) through the port: its own
 msgpack decoder against flax's, the policy forward against JAX's on every
-KIN checkpoint, the reference's ONE_D_RPM threshold over the full protocol,
-and the impulse-contact checkpoints' evaluation against JAX's over 1 s."""
+KIN and RGB checkpoint, the reference's ONE_D_RPM threshold over the full
+protocol, and the impulse-contact checkpoints' evaluation against JAX's over
+1 s."""
 
 import glob
 import os
@@ -98,10 +99,37 @@ def test_policy_forward_equals_jax(name, action, n, contact):
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), rtol=1e-6, atol=1e-5)
 
 
+# The RGB checkpoints: (name, drones, hidden), tests/test_checkpoints.py's
+# configs (frame_stack 4).
+RGB = [("rgb_hover_fs4", 1, 64), ("rgb_multihover_fs4", 2, 128),
+       ("rgb_hover_distilled", 1, 64), ("rgb_multihover_distilled", 2, 128),
+       ("rgb_hover_scratch_ppo436", 1, 64)]
+
+
 def test_rgb_checkpoint_names_its_item():
-    tree = convert.load_flax_msgpack(os.path.join(CKPT, "rgb_hover_fs4.msgpack"))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        convert.actor_critic_from_flax(tree, device="cpu")
+    """The five RGB checkpoints convert to CnnActorCritic (item 17): the
+    drones, the frame stack and the head widths from the shapes, the flax
+    tree back leaf for leaf, and the forward on 4 seeded uint8 frame stacks
+    equal to flax's apply (float32; atol 1e-5 plus rtol 1e-6, the limits of
+    test_policy_forward_equals_jax)."""
+    assert {f"{r[0]}.msgpack" for r in RGB} == {n for n in ALL if n.startswith("rgb_")}
+    rng = np.random.default_rng(0)
+    for name, n, width in RGB:
+        tree = convert.load_flax_msgpack(os.path.join(CKPT, f"{name}.msgpack"))
+        net = convert.actor_critic_from_flax(tree, device="cpu")
+        assert isinstance(net, tppo.CnnActorCritic), name
+        assert net.convs[0].in_channels == 16 and net.heads.mean.out_features == n
+        assert tuple(l.out_features for l in net.heads.pi) == (width, width)
+        _assert_same_tree(convert.actor_critic_to_flax(net), tree)
+        obs = rng.integers(0, 256, (4, n, 48, 64, 16), dtype=np.uint8)
+        with torch.no_grad():
+            got = net(torch.as_tensor(obs))
+        with jax.enable_x64(False):
+            want = jppo.CnnActorCritic(action_dim=n, hidden=(width, width)).apply(
+                jax.tree.map(jnp.asarray, tree), jnp.asarray(obs))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), rtol=1e-6, atol=1e-5,
+                                       err_msg=name)
 
 
 def test_one_d_rpm_checkpoint_solves_reference_threshold():

@@ -1,7 +1,8 @@
-"""Kernels K1 (csrc/velocity_rollout.cu), K2, K4, K5 (csrc/wake_pair_kernels.cu)
-and K3, K6 (csrc/masked_pair_kernels.cu) against their plain PyTorch versions
-on the card, and the impulse contact solver (core/contact.py) on the card
-against the CPU. Needs a CUDA card and nvcc: run on the GPU machine with
+"""Kernels K1 (csrc/velocity_rollout.cu), K2, K4, K5 (csrc/wake_pair_kernels.cu),
+K3, K6 (csrc/masked_pair_kernels.cu) and K7 (csrc/render_views.cu) against
+their plain PyTorch versions on the card, and the impulse contact solver
+(core/contact.py) on the card against the CPU. Needs a CUDA card and nvcc:
+run on the GPU machine with
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -695,3 +696,99 @@ def test_randomize_params_and_checkpoints_load_alike_on_the_card(cuda):
     net, ref = convert.actor_critic_from_flax(tree), convert.actor_critic_from_flax(tree, "cpu")
     for p, q in zip(net.parameters(), ref.parameters()):
         assert p.is_cuda and torch.equal(p.cpu(), q)
+
+
+# K7 (csrc/render_views.cu): the camera at chip_smoke.py phase 10b's limits.
+RENDER_SEG_SHARE, RENDER_RGBA, RENDER_DEP = 0.999, 1, 1e-6
+
+
+def _render_case(device, B, N, seed, spread=1.5):
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform([-spread, -spread, 0.05], [spread, spread, 1.5], (B, N, 3))
+    q = rng.normal(size=(B, N, 4))
+    q = 0.3 * q / np.linalg.norm(q, axis=-1, keepdims=True) + np.array([0.0, 0.0, 0.0, 1.0])
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    arm = np.full(B, 0.0397)
+    return [torch.as_tensor(x, dtype=torch.float32, device=device) for x in (pos, q, arm)]
+
+
+def _hold_render(got, want):
+    same = got[2] == want[2]
+    assert float(same.float().mean()) >= RENDER_SEG_SHARE, int((~same).sum())
+    rgba_gap = (got[0].int() - want[0].int()).abs().amax(-1)
+    assert int(rgba_gap[same].max()) <= RENDER_RGBA
+    assert float((got[1] - want[1]).abs()[same].max()) <= RENDER_DEP
+
+
+@pytest.mark.parametrize("B,N,cfg", [
+    (64, 1, {}), (32, 2, {}), (1, 12, {}), (8, 3, dict(scene="base")),
+    (4, 2, dict(drone_proxy="xframe")), (3, 40, dict(drone_proxy="mesh")),
+    (2, 2, dict(with_landmarks=False, width=128, height=96, frame_angle_deg=0.0)),
+], ids=["rl_1", "mesh_2", "xframe_12", "base_3", "xframe_forced", "mesh_40_global",
+        "bare_large_cf2p"])
+def test_k7_matches_plain_version(cuda, B, N, cfg):
+    from gym_pybullet_drones_tpu_torch.ops import render_views as trv
+    from gym_pybullet_drones_tpu_torch.render import camera as tcam
+
+    pos, quat, arm = _render_case(cuda, B, N, seed=N)
+    c = tcam.CameraConfig(**cfg)
+    cam = list(range(N))
+    before = trv.render_views_cuda.launches
+    got = trv.render_views_cuda(pos, quat, arm, cam, c)
+    want = tcam.render_drone_views_plain(pos, quat, arm, cam, c)
+    torch.cuda.synchronize()
+    assert trv.render_views_cuda.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and g.device == w.device
+    _hold_render(got, want)
+
+
+def test_k7_is_the_render_entry_on_the_card_and_under_vmap(cuda):
+    """render_drone_views on CUDA tensors launches K7 (and equals the CPU's
+    plain render at the limits); under torch.func.vmap it launches K7 once
+    for the whole batch; the RGB env's entry points default to the card."""
+    from gym_pybullet_drones_tpu_torch.envs import spec as tspec
+    from gym_pybullet_drones_tpu_torch.ops import render_views as trv
+    from gym_pybullet_drones_tpu_torch.render import camera as tcam
+    from gym_pybullet_drones_tpu_torch.rl import ppo as tppo
+
+    pos, quat, arm = _render_case(cuda, 6, 2, seed=7)
+    before = trv.render_views_cuda.launches
+    got = tcam.render_drone_views(pos, quat, arm)
+    assert trv.render_views_cuda.launches == before + 1
+    cpu = tcam.render_drone_views(pos.cpu(), quat.cpu(), arm.cpu())
+    _hold_render([g.cpu() for g in got], cpu)
+    mapped = torch.func.vmap(tcam.render_drone_views)(pos, quat, arm)
+    assert trv.render_views_cuda.launches == before + 2
+    for m, g in zip(mapped, got):
+        assert torch.equal(m, g)
+    cfg = tbase.AviaryConfig(num_drones=1, task="hover", pyb_freq=240, ctrl_freq=30,
+                             action_type=tspec.ActionType.ONE_D_RPM, action_buffer_size=15,
+                             obs_type=tspec.ObservationType.RGB, frame_stack=4)
+    runner, aux = tppo.ppo_init(cfg, tppo.PPOConfig(num_envs=4, n_steps=4, minibatch_size=16,
+                                                    n_epochs=1), 0,
+                                domain_rand={"m": 0.1, "kf": 0.05})
+    assert runner.obs.is_cuda and runner.obs.dtype == torch.uint8
+    assert isinstance(runner.params, tppo.CnnActorCritic)
+    train = tppo.make_ppo_train_step(cfg, tppo.PPOConfig(
+        num_envs=4, n_steps=4, minibatch_size=16, n_epochs=1), aux)
+    before = trv.render_views_cuda.launches
+    runner, metrics = train(runner)
+    assert trv.render_views_cuda.launches - before == 4  # one a control step, under vmap
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+def test_k7_rejects_what_it_does_not_take(cuda):
+    from gym_pybullet_drones_tpu_torch.ops import render_views as trv
+    from gym_pybullet_drones_tpu_torch.render import camera as tcam
+
+    pos, quat, arm = _render_case(cuda, 2, 2, seed=1)
+    c = tcam.CameraConfig()
+    with pytest.raises(TypeError):
+        trv.render_views_cuda(pos.double(), quat.double(), arm.double(), [0, 1], c)
+    with pytest.raises(ValueError):
+        trv.render_views_cuda(pos, quat, arm.cpu(), [0, 1], c)
+    with pytest.raises(ValueError):
+        trv.render_views_cuda(pos, quat, arm, [2], c)
+    with pytest.raises(ValueError):
+        trv.render_views_cuda(pos[:, :, :2].contiguous(), quat, arm, [0], c)

@@ -2,6 +2,7 @@
 in float64, and the velocity_pyb / hover_learn_pyb / multihover_pyb goldens
 through the port."""
 
+import dataclasses
 import importlib
 import os
 
@@ -139,13 +140,28 @@ def test_adjacency_matrix_matches_jax():
 
 
 def test_rgb_and_contact_configs_name_their_slice():
-    """RGB names ROADMAP item 17, where the camera comes. The impulse contact mode steps
-    tests/test_contact.py:226-241's config (two drones, MultiHover,
-    ONE_D_RPM, collisions, the RL landmarks) through the Aviary bundle, 20
-    control steps of -0.9, against the JAX package at 1e-10: finite, and the
-    grounded drones held on the plane."""
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tbase.AviaryConfig(obs_type=tspec.ObservationType.RGB)
+    """RGB (ROADMAP item 17) builds and steps: MultiHover, two drones,
+    frame_stack 2, five control steps through the Aviary bundle, held
+    frames of the reference's shape on capture steps and the kinematics of
+    the KIN config bit for bit (the camera reads the state, never writes
+    it). The impulse contact mode steps tests/test_contact.py:226-241's
+    config (two drones, MultiHover, ONE_D_RPM, collisions, the RL
+    landmarks) through the Aviary bundle, 20 control steps of -0.9, against
+    the JAX package at 1e-10: finite, and the grounded drones held on the
+    plane."""
+    rgb_cfg = tbase.AviaryConfig(num_drones=2, task="multihover", pyb_freq=240, ctrl_freq=30,
+                                 action_type=tspec.ActionType.ONE_D_RPM, action_buffer_size=15,
+                                 obs_type=tspec.ObservationType.RGB, frame_stack=2)
+    kin_cfg = dataclasses.replace(rgb_cfg, obs_type=tspec.ObservationType.KIN)
+    rgb, kin = tbase.Aviary(rgb_cfg, device="cpu"), tbase.Aviary(kin_cfg, device="cpu")
+    (s_rgb, obs), (s_kin, _) = rgb.reset(), kin.reset()
+    assert obs.shape == (2, 48, 64, 8) and obs.dtype == torch.uint8 and s_kin.rgb_frames is None
+    for _ in range(5):
+        a = torch.full((2, 1), 0.3)
+        s_rgb, obs, r_rgb, *_ = rgb.step(s_rgb, a)
+        s_kin, _, r_kin, *_ = kin.step(s_kin, a)
+        assert torch.equal(obs, s_rgb.rgb_frames) and bool((obs[..., 3] == 255).all())
+        assert torch.equal(s_rgb.kin.pos, s_kin.kin.pos) and torch.equal(r_rgb, r_kin)
     jcfg, tcfg = _configs("multihover", "ONE_D_RPM", 2, 30, 15, collisions=True,
                           contact_mode="impulse")
     jav, av = jbase.Aviary(jcfg), tbase.Aviary(tcfg, device="cpu")

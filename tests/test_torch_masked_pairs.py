@@ -291,10 +291,10 @@ def test_slice_gates_read_both_forms_alike():
 def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
     """A built library is named by a hash of its source, of every csrc/ file
     it includes and of its own flags: a change to pair_terms.cuh renames (so
-    rebuilds) the two pair kernel libraries and leaves K1's alone, and a
-    change to one source's flags renames that library alone. K2/K4/K5's
-    and K3/K6's sources contract multiply-adds, K1's does not. Needs no
-    compiler."""
+    rebuilds) the two pair kernel libraries and leaves K1's and K7's alone,
+    and a change to one source's flags renames that library alone.
+    K2/K4/K5's and K3/K6's sources contract multiply-adds, K1's and K7's
+    (render_views) do not. Needs no compiler."""
     import os
     import shutil
 
@@ -303,18 +303,20 @@ def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", str(csrc))
-    names = ("velocity_rollout", _pairs.UNIT_KERNEL, _pairs.MASKED_KERNEL)
-    for name in names[1:]:
+    names = ("velocity_rollout", _pairs.UNIT_KERNEL, _pairs.MASKED_KERNEL, "render_views")
+    pairs = names[1:3]
+    for name in pairs:
         assert [os.path.basename(p) for p in _build._sources(str(csrc / f"{name}.cu"))] == [
             f"{name}.cu", "pair_terms.cuh"]
     before = [_build._paths(n)[1] for n in names]
     with open(csrc / "pair_terms.cuh", "a") as fh:
         fh.write("// changed\n")
     after = [_build._paths(n)[1] for n in names]
-    assert after[0] == before[0] and all(a != b for a, b in zip(after[1:], before[1:]))
+    assert [a != b for a, b in zip(after, before)] == [n in pairs for n in names]
     flags = _build.NVCC_FLAGS
-    assert all("-fmad=true" in flags[n] for n in names[1:])
-    assert "-fmad=false" in flags[names[0]] and set(flags) == set(names)
+    assert all("-fmad=true" in flags[n] for n in pairs)
+    assert all("-fmad=false" in flags[n] for n in names if n not in pairs)
+    assert set(flags) == set(names)
     for i, name in enumerate(names):
         with monkeypatch.context() as m:
             m.setitem(flags, name, flags[name] + ("-lineinfo",))
