@@ -152,7 +152,34 @@ Phases, one or more lines each:
      the five RGB checkpoints at tests/test_checkpoints.py's gates (two over
      260 control steps, three over 2,600), each in its own ``python3
      chip_smoke.py --eval NAME`` process, all at once;
-  11. one JSON line of kernels (``ms``: CUDA events around the wrapper's
+  11. the controllers (control/), float32: (a) tests/test_commander_jax.py's
+     mission (takeoff, own corner with hold, land; commander + Mellinger
+     through envs/base.step with preprocessed RPMs) for 4,096 drones in one
+     world on a 64 x 64 grid at 1.5 m pitch, PYB 500/500 Hz, 4,100 ticks, at
+     the test's gates (corners at 4.5 s within 0.06 m in xy and 0.12 m in z,
+     pads within 0.06 m and 0.15 m): ms a tick (events), a tick's kernels,
+     busy ms and idle share (torch.profiler); (b) the single-step gates of
+     tests/test_controllers_extra.py at E = 4096 (MRAC at the hover point
+     0.25-2.5x hover RPM; CTBR asks g there and climbs to a target above),
+     then MRAC (240/120 Hz) and CTBR (240/240 Hz, through a body-rate P loop
+     and the X mixer's inverse) closed loops of 4,096 one-drone CtrlAviary
+     envs over 2 s to seeded targets, within 0.1 and 0.05 m at the end; (c)
+     the mission (an 8 x 8 grid, 500 ticks), MRAC and CTBR at 64 drones over
+     1 s, the card against the CPU at tests/test_soa.py:52-59's limits;
+  11b. the Gymnasium shells (compat/), through gymnasium.make / make_vec
+     where gymnasium is installed, else through the device functions they
+     wrap (runtime/shell.py: shell_step, make_vec_core, record_frame) at the
+     same sizes, saying so: (a) one Hover env for 300 steps of seeded RPM
+     actions, reset at each episode's end, steps/s, its first second against
+     the CPU (atol 1e-3); (b) a Hover vector env at E = 4096 for 256 steps,
+     every env the same action: ms a step, env-steps/s, the batched device
+     step alone and the one host copy alone, the first episode boundary with
+     its final obs; (c) the same with per-env plants {"m": 0.1, "kf": 0.05}
+     spreading z; (d) an RGB Hover vector env (frame_stack 4) at E = 64 for
+     30 steps: K7 once a control step (counted from 0), frames equal to the
+     CPU's on 8 envs byte for byte; (e) record=True for 48 steps: 48 frames
+     of 128 x 96 through K7 and a video;
+  12. one JSON line of kernels (``ms``: CUDA events around the wrapper's
      calls; ``device_ms``: the device time of its kernels and memsets under
      torch.profiler, null if not measured), the nvidia-smi line, and the
      result line.
@@ -160,12 +187,15 @@ Phases, one or more lines each:
 
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter, defaultdict
 from concurrent.futures import ThreadPoolExecutor
@@ -174,6 +204,14 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from gym_pybullet_drones_tpu_torch.control.commander import mission_setpoint, plan_mission
+from gym_pybullet_drones_tpu_torch.control.ctbr import ctbr_control, ctbr_params
+from gym_pybullet_drones_tpu_torch.control.mellinger import (
+    mellinger_params,
+    mellinger_reset,
+    mellinger_rpm,
+)
+from gym_pybullet_drones_tpu_torch.control.mrac import mrac_control, mrac_params, mrac_reset
 from gym_pybullet_drones_tpu_torch.convert import (
     actor_critic_from_flax,
     actor_critic_to_flax,
@@ -185,7 +223,9 @@ from gym_pybullet_drones_tpu_torch.core.contact import (
     build_pair_candidates_binned,
 )
 from gym_pybullet_drones_tpu_torch.core.dynamics import init_kin_state, step_physics, substep_pyb
+from gym_pybullet_drones_tpu_torch.core.params import randomize_params
 from gym_pybullet_drones_tpu_torch.envs.base import (
+    TASK_CTRL,
     TASK_HOVER,
     TASK_MULTIHOVER,
     TASK_VELOCITY,
@@ -195,7 +235,13 @@ from gym_pybullet_drones_tpu_torch.envs.base import (
     compute_obs,
     hover_target_pos,
 )
-from gym_pybullet_drones_tpu_torch.core.rotations import euler_xyz_to_quat
+from gym_pybullet_drones_tpu_torch.envs.base import reset as env_reset
+from gym_pybullet_drones_tpu_torch.envs.base import step as env_step
+from gym_pybullet_drones_tpu_torch.core.rotations import (
+    euler_xyz_to_quat,
+    quat_to_euler_xyz,
+    quat_to_matrix,
+)
 from gym_pybullet_drones_tpu_torch.envs.spec import ActionType, ObservationType, Physics
 from gym_pybullet_drones_tpu_torch.ops import _build, _pairs, collide_pairs, interact_pairs, spatial
 from gym_pybullet_drones_tpu_torch.ops.collide_pairs import (
@@ -259,11 +305,19 @@ from gym_pybullet_drones_tpu_torch.rl.ppo import (
     rollout_step,
 )
 from gym_pybullet_drones_tpu_torch.runtime.rollout import batch_reset, make_batched_step
+from gym_pybullet_drones_tpu_torch.runtime.shell import (
+    host_copy,
+    make_vec_core,
+    record_frame,
+    shell_config,
+    shell_step,
+)
 from gym_pybullet_drones_tpu_torch.runtime.swarm import (
     make_big_swarm_physics,
     make_swarm_physics,
     select_swarm_backend,
 )
+from gym_pybullet_drones_tpu_torch.utils.video import png_dir_to_video
 
 E = 4096
 T_SHORT, T_LONG, T_TIME, T_PLAIN = 8, 240, 4800, 480
@@ -2334,6 +2388,475 @@ def phase10b_pixels(dev):
                 rgba_max_gap=worst["rgba_max"], seg_equal_share=worst["seg_share"])
 
 
+# Phase 11: the controllers (control/). Card against CPU at
+# tests/test_soa.py:52-59's float32 limits over 1 s (the parity rule).
+CTRL_LIMITS = dict(pos=1e-3, vel=2e-3, quat=1e-3)
+# (a) tests/test_commander_jax.py:102-175's mission for a 64 x 64 grid of drones
+# at 1.5 m pitch in one world (PYB, 500/500 Hz, float32, no collisions): its
+# legs, its 4,100 ticks, its gates at 4.5 s and at the end.
+MISSION_SIDE, MISSION_PITCH, MISSION_TICKS, MISSION_MID = 64, 1.5, 4100, int(4.5 * 500) - 1
+CORNER_OFFSETS = np.array([[0.4, 0.4, 0.44], [-0.4, 0.4, 0.44], [0.4, -0.4, 0.44],
+                           [-0.4, -0.4, 0.44]], np.float32)
+# (b) closed loops of E one-drone CtrlAviary envs over 2 s, each env its own
+# target: MRAC at examples/mrac.py's 240/120 Hz from (0, 0, 0.1) to (0, 0, 1)
+# plus up to 0.2 m vertically (its lateral loop settles in more than 2 s); CTBR at 240/240 Hz to up to 0.3 m off
+# laterally and 0.2 m vertically, through a rate-mode flight stack (a body-rate
+# P loop, RATE_GAIN, and the X mixer's inverse, as Betaflight closes CTBR).
+LOOP_E, LOOP_SEC, PARITY_E, RATE_GAIN = 4096, 2.0, 64, 30.0
+LOOP_GATES = {"MRAC": 0.1, "CTBR": 0.05}  # m, |position error| at 2 s, every env
+RAD2DEG = 57.29577951308232
+
+
+def mission_world(dev, side):
+    """(a)'s world: a side x side grid, each drone's legs from its own start."""
+    n = side * side
+    ij = np.stack(np.meshgrid(np.arange(side), np.arange(side), indexing="ij"), -1).reshape(-1, 2)
+    starts = np.concatenate([ij * MISSION_PITCH, np.full((n, 1), 0.06)], 1).astype(np.float32)
+    corners = starts + CORNER_OFFSETS[np.arange(n) % 4]
+    lands = corners * np.array([1.0, 1.0, 0.0], np.float32) + np.array([0, 0, 0.08], np.float32)
+    legs = plan_mission(starts, np.zeros(n, np.float32), [
+        {"pos": starts + np.array([0, 0, 0.44], np.float32), "duration": 2.0, "hold": 0.5},
+        {"pos": corners, "duration": 2.0, "hold": 0.5},
+        {"pos": lands, "duration": 2.0, "hold": 1.0}], device=dev)
+    cfg = AviaryConfig(num_drones=n, task=TASK_CTRL, pyb_freq=500, ctrl_freq=500,
+                       action_buffer_size=0)
+    params = build_params(cfg, dev)
+    state = env_reset(cfg, params)
+    state = state.replace(kin=state.kin.replace(pos=torch.as_tensor(starts, device=dev)))
+    mp, ms = mellinger_params(device=dev), mellinger_reset((n,), device=dev)
+    c = dict(cfg=cfg, params=params, cp=build_ctrl_params(cfg, dev), legs=legs, mp=mp,
+             target=torch.zeros((n, 3), device=dev), zero=torch.zeros((n, 4), device=dev),
+             dt=torch.tensor(1.0 / 500.0, device=dev), r2d=torch.tensor(RAD2DEG, device=dev))
+    carry = dict(state=state, ms=ms, prev=quat_to_euler_xyz(state.kin.quat),
+                 k=torch.zeros((), device=dev))
+    return c, carry, corners, lands
+
+
+def mission_tick(c, s):
+    """One tick of the JAX test's scan body: setpoint, gyro feed, Mellinger,
+    the env step with the preprocessed RPMs."""
+    n = c["cfg"].num_drones
+    sp = mission_setpoint(c["legs"], (s["k"] * c["dt"]).expand(n))
+    state = s["state"]
+    rpy = quat_to_euler_xyz(state.kin.quat)
+    gyro = (rpy - s["prev"]) / c["dt"] * c["r2d"]
+    z = torch.zeros_like(sp["yaw_rate"])
+    rpm, s["ms"] = mellinger_rpm(c["mp"], s["ms"], state.kin.pos, state.kin.vel, state.kin.quat,
+                                 gyro, sp["pos"], sp_vel=sp["vel"], sp_acc=sp["acc"],
+                                 sp_quat=sp["quat"],
+                                 sp_rate_deg=torch.stack([z, z, sp["yaw_rate"] * c["r2d"]], -1))
+    s["state"], *_ = env_step(c["cfg"], c["params"], c["cp"], c["target"], state, c["zero"],
+                              preprocessed_rpm=rpm)
+    s["prev"], s["k"] = rpy, s["k"] + 1
+
+
+def kin_of(state):
+    return {k: getattr(state.kin, k).detach().cpu().double() for k in CTRL_LIMITS}
+
+
+def rate_mode_rpm(out, kin, params, mix_inv):
+    """CTBR's (..., 4) [thrust (m/s^2), p, q, r] to motor RPMs: a body-rate P
+    loop (torque J (RATE_GAIN (w_des - w) ) + w x J w) and the inverse of the
+    X mixer (thrust at the prop offsets, the km / kf yaw reaction)."""
+    w = torch.einsum("...ji,...j->...i", quat_to_matrix(kin.quat), kin.ang_v)
+    jw = torch.einsum("ij,...j->...i", params.J, w)
+    tau = torch.einsum("ij,...j->...i", params.J, RATE_GAIN * (out[..., 1:] - w)) \
+        + torch.linalg.cross(w, jw)
+    f = torch.einsum("ij,...j->...i", mix_inv, torch.cat([params.m * out[..., :1], tau], -1))
+    return torch.clamp(torch.sqrt(torch.clamp(f, min=0.0) / params.kf), max=params.max_rpm)
+
+
+def loop_case(name, dev, E):
+    """(b)'s batch: its config, params, the batched step and the controller's
+    per-env targets, seeded (the same on every device)."""
+    ctrl = 120 if name == "MRAC" else 240
+    cfg = AviaryConfig(task=TASK_CTRL, pyb_freq=240, ctrl_freq=ctrl,
+                       initial_xyzs=((0.0, 0.0, 0.1),))
+    params = build_params(cfg, dev)
+    step = make_batched_step(cfg, params, build_ctrl_params(cfg, dev), None, auto_reset=False)
+    rng = np.random.default_rng(11)
+    span = np.array([0.0, 0.0, 0.2]) if name == "MRAC" else np.array([0.3, 0.3, 0.2])
+    target = np.array([0.0, 0.0, 1.0]) + rng.uniform(-1, 1, (E, 1, 3)) * span
+    return cfg, params, step, torch.as_tensor(target, dtype=torch.float32, device=dev)
+
+
+def fly_loop(name, dev, E, seconds, trace=False):
+    """(b) / (c): the closed loop from batch_reset; returns the final state,
+    the targets, per-control-step kinematics (``trace``) and ms a step."""
+    cfg, params, step, target = loop_case(name, dev, E)
+    state = batch_reset(cfg, params, E, device=dev)
+    if name == "MRAC":
+        mp = mrac_params(device=dev)
+        ms = [mrac_reset(mp, (E, 1))]
+
+        def control(state):
+            rpm, ms[0], _, _ = mrac_control(mp, ms[0], cfg.ctrl_timestep, state.kin.pos,
+                                            state.kin.quat, state.kin.vel, state.kin.ang_v,
+                                            target)
+            return rpm
+    else:
+        cp = ctbr_params(device=dev)
+        p64 = params.to("cpu").map(torch.Tensor.double)
+        mix = torch.stack([torch.ones(4, dtype=torch.float64), p64.prop_offsets[:, 1],
+                           -p64.prop_offsets[:, 0],
+                           (p64.km / p64.kf) * torch.tensor([-1.0, 1.0, -1.0, 1.0],
+                                                            dtype=torch.float64)])
+        mix_inv = torch.linalg.inv(mix).float().to(dev)
+
+        def control(state):
+            out = ctbr_control(cp, state.kin.pos, state.kin.quat, state.kin.vel, target)
+            return rate_mode_rpm(out, state.kin, params, mix_inv)
+    rpm = torch.zeros((E, 1, 4), device=dev) if name == "MRAC" else control(state)
+    steps, rows = int(round(seconds * cfg.ctrl_freq)), []
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        # examples/mrac.py's order: step with the last action, then control
+        state, _ = step(state, rpm)
+        rpm = control(state)
+        if trace:
+            rows.append(kin_of(state))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return state, target, rows, (time.perf_counter() - t0) * 1e3 / steps, steps
+
+
+def hover_gates(dev):
+    """tests/test_controllers_extra.py's single-step gates at E = LOOP_E:
+    MRAC at the hover fixed point commands 0.25-2.5x the hover RPM; CTBR there
+    asks g with zero rates, and climbs (thrust > 9) to a target 1 m up."""
+    E, params = LOOP_E, build_params(AviaryConfig(), dev)
+    pos = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(E, 3)
+    quat = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev).expand(E, 4)
+    zero = torch.zeros((E, 3), device=dev)
+    mp = mrac_params(device=dev)
+    rpm, *_ = mrac_control(mp, mrac_reset(mp, (E,)), 1.0 / 120.0, pos, quat, zero, zero, pos)
+    hover = float(params.hover_rpm)
+    ratio = rpm.mean(-1) / hover
+    cp = ctbr_params(device=dev)
+    at = ctbr_control(cp, pos, quat, zero, pos)
+    up = ctbr_control(cp, pos, quat, zero, pos + torch.tensor([0.0, 0.0, 1.0], device=dev))
+    res = dict(mrac_rpm_over_hover=(float(ratio.min()), float(ratio.max())),
+               ctbr_hover_thrust_gap=float((at[:, 0] - 9.8).abs().max()),
+               ctbr_hover_rates=float(at[:, 1:].abs().max()), ctbr_climb=float(up[:, 0].min()))
+    print(f"[11] (b) single-step gates at E={E}: " + json.dumps(res), flush=True)
+    if not (0.25 < res["mrac_rpm_over_hover"][0] and res["mrac_rpm_over_hover"][1] < 2.5):
+        fail(f"(b) MRAC at the hover point commands {res['mrac_rpm_over_hover']} x hover RPM")
+    if not (res["ctbr_hover_thrust_gap"] < 1e-4 and res["ctbr_hover_rates"] < 1e-6
+            and res["ctbr_climb"] > 9.0):
+        fail(f"(b) CTBR's hover or climb command is off: {res}")
+
+
+def phase11_controllers(dev):
+    """(a) the 4,096-drone mission, (b) CTBR and MRAC closed loops at E = 4096,
+    (c) each controller on the card against the CPU."""
+    t_phase = time.perf_counter()
+    # (a)
+    c, s, corners, lands = mission_world(dev, MISSION_SIDE)
+    n = c["cfg"].num_drones
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    for k in range(MISSION_TICKS):
+        mission_tick(c, s)
+        if k == MISSION_MID:
+            mid = s["state"].kin.pos.clone()
+    ev[1].record()
+    ev[1].synchronize()
+    wall, event = time.perf_counter() - t0, ev[0].elapsed_time(ev[1])
+    mid, final = mid.cpu().numpy(), s["state"].kin.pos.cpu().numpy()
+    prof = profile_steps(lambda: mission_tick(c, s), 4)
+    if prof is None:
+        fail("(a) torch.profiler saw no kernel on the card in a mission tick")
+    gaps = dict(mid_xy=float(np.abs(mid[:, :2] - corners[:, :2]).max()),
+                mid_z=float(np.abs(mid[:, 2] - corners[:, 2]).max()),
+                end_xy=float(np.abs(final[:, :2] - lands[:, :2]).max()),
+                end_z=float(np.abs(final[:, 2] - lands[:, 2]).max()))
+    print(f"[11] (a) mission (commander + Mellinger through envs/base.step, preprocessed RPMs), "
+          f"{n} drones in one world on a {MISSION_SIDE} x {MISSION_SIDE} grid at "
+          f"{MISSION_PITCH} m, PYB 500/500 Hz, {MISSION_TICKS} ticks: {wall:.2f} s host, "
+          f"{event / MISSION_TICKS:.4f} ms a tick (CUDA events), "
+          f"{n * MISSION_TICKS / (event / 1e3):.6g} drone-ticks/s; a tick under torch.profiler "
+          f"{prof['kernels_per_step']:.0f} kernels and memsets, card busy {prof['busy_ms']:.4f} "
+          f"ms, idle share {1.0 - prof['busy_ms'] / (event / MISSION_TICKS):.4f}, host wall "
+          f"{prof['wall_ms']:.3f} ms; worst gaps " + json.dumps(
+              {k: float(f"{v:.4g}") for k, v in gaps.items()})
+          + " (gates: corners at 4.5 s 0.06 xy, 0.12 z; pads 0.06 xy, 0.15 z)", flush=True)
+    if not np.isfinite(final).all():
+        fail("(a) the mission's positions are not finite")
+    if not (gaps["mid_xy"] < 0.06 and gaps["mid_z"] < 0.12 and gaps["end_xy"] < 0.06
+            and gaps["end_z"] < 0.15):
+        fail(f"(a) the mission missed the JAX test's gates: {gaps}")
+    # (b)
+    hover_gates(dev)
+    for name in ("MRAC", "CTBR"):
+        state, target, _, ms, steps = fly_loop(name, dev, LOOP_E, LOOP_SEC)
+        err = (state.kin.pos - target).norm(dim=-1)
+        worst = float(err.max())
+        print(f"[11] (b) {name} closed loop, E={LOOP_E} one-drone CtrlAviary envs, {LOOP_SEC} s "
+              f"({steps} control steps): {ms:.4f} ms a control step (host clock), "
+              f"{LOOP_E / (ms / 1e3):.6g} env-steps/s; |position error| at the end max "
+              f"{worst:.4f} m, mean {float(err.mean()):.4f} m (gate {LOOP_GATES[name]} m)",
+              flush=True)
+        if not (bool(torch.isfinite(state.kin.pos).all()) and worst < LOOP_GATES[name]):
+            fail(f"(b) {name} did not reach its targets: worst error {worst} m")
+    # (c) the card against the CPU, PARITY_E drones over 1 s
+    side = int(math.isqrt(PARITY_E))
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        cm, sm, _, _ = mission_world(d, side)
+        rows = []
+        for _ in range(500):
+            mission_tick(cm, sm)
+            rows.append(kin_of(sm["state"]))
+        runs[("Mellinger mission", d.type)] = rows
+        for name in ("MRAC", "CTBR"):
+            runs[(name, d.type)] = fly_loop(name, d, PARITY_E, 1.0, trace=True)[2]
+    worst = {}
+    for name in ("Mellinger mission", "MRAC", "CTBR"):
+        card, cpu = runs[(name, dev.type)], runs[(name, "cpu")]
+        worst[name] = {k: max(float((a[k] - b[k]).abs().max()) for a, b in zip(card, cpu))
+                       for k in CTRL_LIMITS}
+    print(f"[11] (c) card vs CPU over 1 s, {PARITY_E} drones (the mission on an {side} x {side} "
+          f"grid, 500 ticks; MRAC 120 and CTBR 240 control steps): max gaps "
+          + json.dumps({k: {f: float(f"{x:.3g}") for f, x in v.items()} for k, v in worst.items()})
+          + f" (limits {json.dumps(CTRL_LIMITS)})", flush=True)
+    for name, v in worst.items():
+        for f, x in v.items():
+            if not x <= CTRL_LIMITS[f]:
+                fail(f"(c) {name} on the card differs from the CPU in {f}: {x}")
+    print(f"[11] phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# Phase 11b: the Gymnasium shells. Where gymnasium is installed they are driven
+# through gymnasium.make / make_vec; where it is not, through the device
+# functions they wrap (runtime/shell.py) at the same sizes.
+SHELL_HOVER = dict(task=TASK_HOVER, pyb_freq=240, ctrl_freq=30, obstacles=True,
+                   action_buffer_size=15)  # HoverAviary's keywords (compat/gym.py)
+SHELL_STEPS, VEC_E, VEC_STEPS, RGB_SHELL_E, RGB_SHELL_STEPS, RECORD_STEPS = \
+    300, 4096, 256, 64, 30, 48
+
+
+def shell_hover(dev, **extra):
+    """The Hover shell's config, params, control params and target on ``dev``."""
+    cfg = shell_config(**{**SHELL_HOVER, **extra})
+    params = build_params(cfg, dev)
+    return cfg, params, build_ctrl_params(cfg, dev), hover_target_pos(cfg, params)
+
+
+def single_shell_run(dev, actions, gym_mod):
+    """(a): one Hover env stepped with ``actions``, reset at an episode's end;
+    the host seconds, the obs of reset and each step, and the episodes
+    ended."""
+    if gym_mod is not None:
+        env = gym_mod.make("cuda/hover-aviary-v0", device=dev)
+
+        def step(a):
+            return env.step(a)[:4]
+
+        def reset():
+            return env.reset(seed=0)[0]
+    else:
+        cfg, params, cp, target = shell_hover(dev)
+        holder = [None]
+
+        def step(a):
+            holder[0], *out = shell_step(cfg, params, cp, target, holder[0], a)
+            return out
+
+        def reset():
+            holder[0] = env_reset(cfg, params)
+            (o,) = host_copy(compute_obs(cfg, holder[0]))
+            return o
+    trace, ended = [reset()], 0
+    t0 = time.perf_counter()
+    for a in actions:
+        obs, _, term, trunc = step(a)
+        trace.append(obs)
+        if term or trunc:
+            ended += 1
+            reset()
+    return time.perf_counter() - t0, trace, ended
+
+
+def vec_runner(dev, E, gym_mod, domain_rand=None, rgb=False):
+    """A vector Hover env of E envs as ``(reset() -> obs, step(actions) ->
+    (obs, reward, terminated, truncated, final obs)``: gymnasium.make_vec's
+    VecAviary where gymnasium is installed, else the make_vec_core it wraps.
+    The per-env plants come from the CPU generator VecAviary seeds (seed 0)."""
+    extra = dict(obs=ObservationType.RGB, frame_stack=4) if rgb else {}
+    if gym_mod is not None:
+        vec = gym_mod.make_vec("cuda/hover-aviary-v0", num_envs=E, device=dev,
+                               domain_rand=domain_rand, **extra)
+
+        def step(a):
+            o, r, te, tr, info = vec.step(a)
+            fo = info.get("final_obs")
+            return o, r, te, tr, None if fo is None else np.stack(
+                [x if x is not None else np.zeros_like(o[0]) for x in fo])
+        return lambda: vec.reset(seed=0)[0], step
+    cfg, params, cp, target = shell_hover(dev, **extra)
+    if domain_rand:
+        params = randomize_params(torch.Generator().manual_seed(0), params, E, domain_rand)
+    reset_core, step_core = make_vec_core(cfg, params, cp, target, E, dev)
+    holder = [None]
+
+    def reset():
+        holder[0], obs = reset_core()
+        return obs
+
+    def step(a):
+        holder[0], out = step_core(holder[0], a)
+        return out
+    return reset, step
+
+
+def copy_share(dev, E, domain_rand):
+    """The batched device step alone and the one host copy of its outputs
+    alone, ms each (host clock after a synchronize, 8 steps)."""
+    cfg, params, cp, target = shell_hover(dev)
+    if domain_rand:
+        params = randomize_params(torch.Generator().manual_seed(0), params, E, domain_rand)
+    step_fn = make_batched_step(cfg, params, cp, target, auto_reset=True)
+    state = batch_reset(cfg, params, E, device=dev)
+    a = torch.zeros((E, 1, 4), device=dev)
+    state, out = step_fn(state, a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        state, out = step_fn(state, a)
+    torch.cuda.synchronize()
+    dev_ms = (time.perf_counter() - t0) * 1e3 / 8
+    t0 = time.perf_counter()
+    for _ in range(8):
+        host_copy(out.obs, out.reward, out.terminated, out.truncated, out.final_obs)
+    return dev_ms, (time.perf_counter() - t0) * 1e3 / 8
+
+
+def phase11b_shells(dev):
+    """The Gymnasium shells on the card; returns K7's launches on their paths."""
+    t_phase = time.perf_counter()
+    gym_mod = None
+    if importlib.util.find_spec("gymnasium") is not None:
+        import gymnasium as gym_mod
+    else:
+        print("[11b] gymnasium absent on this machine: the Gym wrappers were run on the CPU "
+              "only", flush=True)
+    # (a) one Hover env, an episode boundary at 8 s (step 242), the first
+    # second against the CPU
+    acts = np.random.default_rng(4).uniform(-0.5, 0.5, (SHELL_STEPS, 1, 4)).astype(np.float32)
+    secs, trace, ended = single_shell_run(dev, acts, gym_mod)
+    _, trace_cpu, _ = single_shell_run(torch.device("cpu"), acts[:30], gym_mod)
+    gap = max(float(np.abs(a - b).max()) for a, b in zip(trace, trace_cpu))
+    via = "gymnasium.make" if gym_mod else "runtime.shell.shell_step, the step HoverAviary wraps"
+    print(f"[11b] (a) one cuda/hover-aviary-v0 env through {via}, {SHELL_STEPS} steps "
+          f"(240/30 Hz, RPM actions, buffer 15): {secs:.2f} s host, {SHELL_STEPS / secs:.2f} "
+          f"steps/s, episodes ended {ended}; max |obs gap| card vs CPU over the first second "
+          f"(30 steps) {gap:.3g} (limit 1e-3)", flush=True)
+    if ended < 1 or not all(np.isfinite(o).all() for o in trace):
+        fail(f"(a) the single shell ended no episode in {SHELL_STEPS} steps, or its obs are not "
+             "finite")
+    if not gap <= 1e-3:
+        fail(f"(a) the single shell on the card differs from the CPU over 1 s: {gap}")
+    # (b), (c) E = 4096 vector envs, nominal and per-env plants
+    vec_acts = np.random.default_rng(9).uniform(-0.3, 0.3, (VEC_STEPS, 1, 1, 4)) \
+        .astype(np.float32)
+    for what, dr in (("(b) nominal", None),
+                     ("(c) domain_rand m 0.1, kf 0.05", {"m": 0.1, "kf": 0.05})):
+        reset, step = vec_runner(dev, VEC_E, gym_mod, dr)
+        reset()
+        outs, t0 = [], time.perf_counter()
+        for a in vec_acts:  # every env the same action: only the plants differ
+            outs.append(step(np.broadcast_to(a, (VEC_E, 1, 4)).copy()))
+        host_ms = (time.perf_counter() - t0) * 1e3 / VEC_STEPS
+        dev_ms, copy_ms = copy_share(dev, VEC_E, dr)
+        ends = [t for t, o in enumerate(outs) if (o[2] | o[3]).any()]
+        if not ends:
+            fail(f"{what}: no episode ended in {VEC_STEPS} steps")
+        o, _, te, tr, final = outs[ends[0]]
+        done = te | tr
+        if not (np.isfinite(final[done]).all() and all(np.isfinite(x[0]).all() for x in outs)):
+            fail(f"{what}: obs or final obs not finite")
+        if np.array_equal(final[done], o[done]):
+            fail(f"{what}: the final obs equals the reset obs at the boundary")
+        spread = float(np.ptp(outs[29][0][:, 0, 2]))
+        print(f"[11b] {what}: cuda/hover-aviary-v0 vector env through "
+              f"{'gymnasium.make_vec' if gym_mod else 'runtime.shell.make_vec_core'}, "
+              f"E={VEC_E}, {VEC_STEPS} steps: {host_ms:.3f} ms a step (host clock), "
+              f"{VEC_E / (host_ms / 1e3):.6g} env-steps/s; the batched device step alone "
+              f"{dev_ms:.3f} ms, the one host copy of its outputs alone {copy_ms:.3f} ms "
+              f"({copy_ms / host_ms:.4f} of a step); first boundary at step {ends[0] + 1} "
+              f"({int(done.sum())} envs, their final obs delivered); z spread over the envs at "
+              f"step 30 {spread:.4g} m", flush=True)
+        if dr and not spread > 1e-3:
+            fail(f"{what}: the per-env plants did not spread z ({spread})")
+        if not dr and spread != 0.0:
+            fail(f"{what}: the nominal envs, stepped alike, spread in z ({spread})")
+    # (d) RGB at E = 64, frame_stack 4: K7 once a control step, frames against
+    # the CPU on RGB_CPU_ENVS of the envs, exactly
+    rgb_acts = np.random.default_rng(6).uniform(-0.5, 0.5, (RGB_SHELL_STEPS, RGB_SHELL_E, 1, 4)) \
+        .astype(np.float32)
+    reset, step = vec_runner(dev, RGB_SHELL_E, gym_mod, rgb=True)
+    card = [reset()]
+    render_views_cuda.launches = 0
+    t0 = time.perf_counter()
+    card += [step(a) for a in rgb_acts]
+    k7_rgb = render_views_cuda.launches
+    rgb_ms = (time.perf_counter() - t0) * 1e3 / RGB_SHELL_STEPS
+    reset, step = vec_runner(torch.device("cpu"), RGB_CPU_ENVS, None, rgb=True)
+    cpu = [reset()] + [step(a[:RGB_CPU_ENVS]) for a in rgb_acts]
+    differ = int((card[0][:RGB_CPU_ENVS] != cpu[0]).sum()) + sum(
+        int((c[0][:RGB_CPU_ENVS] != p[0]).sum()) for c, p in zip(card[1:], cpu[1:]))
+    r_gap = max(float(np.abs(c[1][:RGB_CPU_ENVS] - p[1]).max()) for c, p in zip(card[1:], cpu[1:]))
+    shape = card[1][0].shape
+    print(f"[11b] (d) RGB cuda/hover-aviary-v0 vector env (frame_stack 4, obs {shape} uint8), "
+          f"E={RGB_SHELL_E}, {RGB_SHELL_STEPS} steps: {rgb_ms:.3f} ms a step (host clock); K7 "
+          f"launches over the steps {k7_rgb} (one a control step expected); card vs CPU on "
+          f"{RGB_CPU_ENVS} envs: frame bytes differing {differ}, max |reward gap| {r_gap:.3g}",
+          flush=True)
+    if k7_rgb != RGB_SHELL_STEPS:
+        fail(f"(d) K7 launched {k7_rgb} times over {RGB_SHELL_STEPS} control steps")
+    if differ or not r_gap <= 1e-3 or shape != (RGB_SHELL_E, 1, 48, 64, 16):
+        fail(f"(d) RGB frames or rewards on the card differ from the CPU: {differ} bytes, "
+             f"reward gap {r_gap}, obs shape {shape}")
+    # (e) record=True: drone 0's 128 x 96 camera every control step, K7
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_record_")
+    try:
+        render_views_cuda.launches = 0
+        t0 = time.perf_counter()
+        if gym_mod is not None:
+            env = gym_mod.make("cuda/hover-aviary-v0", record=True, output_folder=out_dir,
+                               device=dev)
+            env.reset(seed=0)
+            for a in acts[:RECORD_STEPS]:
+                env.step(a)
+            env.close()
+            (rec,) = os.listdir(out_dir)
+            rec = os.path.join(out_dir, rec)
+        else:
+            cfg, params, cp, target = shell_hover(dev)
+            state, rec = env_reset(cfg, params), out_dir
+            for k, a in enumerate(acts[:RECORD_STEPS]):
+                state, *_ = shell_step(cfg, params, cp, target, state, a)
+                record_frame(state, params, True, rec, k)
+            png_dir_to_video(rec, fps=24)
+        k7_rec = render_views_cuda.launches
+        secs = time.perf_counter() - t0
+        frames = sorted(f for f in os.listdir(rec) if f.endswith(".png"))
+        videos = [f for f in os.listdir(rec) if f.endswith((".avi", ".mp4"))]
+        print(f"[11b] (e) record=True Hover env, {RECORD_STEPS} steps: {len(frames)} frames of "
+              f"128 x 96 written, video {videos}, K7 launches {k7_rec}, {secs:.2f} s host",
+              flush=True)
+        if len(frames) != RECORD_STEPS or k7_rec != RECORD_STEPS or not videos:
+            fail(f"(e) record=True wrote {len(frames)} frames with {k7_rec} K7 launches")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"[11b] phase 11b: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return k7_rgb + k7_rec
+
+
 def main():
     # ---------------- 1. device ----------------
     if not torch.cuda.is_available():
@@ -2544,7 +3067,13 @@ def main():
     # ---------------- 10b. the pixel path ----------------
     k7 = phase10b_pixels(dev)
 
-    # ---------------- 11. result ----------------
+    # ---------------- 11. the controllers ----------------
+    phase11_controllers(dev)
+
+    # ---------------- 11b. the Gymnasium shells ----------------
+    k7["launches"] += phase11b_shells(dev)
+
+    # ---------------- 12. result ----------------
     kernels = [{
         "name": f"K1 {KERNEL}", "route": "cuda",
         "source": "gym_pybullet_drones_tpu_torch/csrc/velocity_rollout.cu",
@@ -2587,7 +3116,7 @@ def main():
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
             fail(f"non-finite measurement for {k['name']}")
         if k["device_ms"] is None:
-            print(f"[11] {k['name']}: device_ms null, no torch.profiler trace held its kernels "
+            print(f"[12] {k['name']}: device_ms null, no torch.profiler trace held its kernels "
                   "(not measured)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -4,12 +4,19 @@ slice 3: the sequential-impulse contact solver, ``contact_mode="impulse"``;
 slice 4: PPO and the BC warm start, ``rl/``, with domain-randomized params,
 ``core.params.randomize_params``, and the checkpoints read by
 ``convert.load_flax_msgpack``; slice 6: the pixel path, the onboard camera
-``render/`` with its kernel K7, RGB observations and ``CnnActorCritic``).
+``render/`` with its kernel K7, RGB observations and ``CnnActorCritic``;
+slice 7: the controllers ``control/`` (CTBR, MRAC, Mellinger, the mission
+commander and the stateful shells of ``control/compat.py``), ``utils/``, and
+the Gymnasium shells ``compat/gym.py`` and ``compat/vector.py``).
 
 The JAX package ``gym_pybullet_drones_tpu`` stays the reference; this package
 never imports it or JAX. Entry points run on the CUDA card unless the caller
-passes ``device="cpu"``. Gymnasium registration comes with a later slice,
-under ids of its own.
+passes ``device="cpu"``. With gymnasium installed, importing the package
+registers the shells under ids of their own, ``cuda/ctrl-aviary-v0``,
+``cuda/velocity-aviary-v0``, ``cuda/hover-aviary-v0`` and
+``cuda/multihover-aviary-v0``, each with a ``vector_entry_point``
+(``gymnasium.make_vec`` builds a ``compat.vector.VecAviary``); the JAX
+package's ids stay its own.
 """
 
 from gym_pybullet_drones_tpu_torch.control.dsl_pid import (
@@ -59,3 +66,21 @@ __all__ = [
     "make_big_swarm_physics", "make_swarm_physics", "make_velocity_rollout", "rl_obstacles",
     "select_swarm_backend", "step_physics",
 ]
+
+# Gymnasium registration under the port's own ids (the JAX package registers
+# the reference ids, gym_pybullet_drones_tpu/__init__.py:27-54; registering
+# one again would override it).
+try:
+    from gymnasium.envs.registration import register as _register
+
+    for _name, _cls, _vec in (("ctrl", "CtrlAviary", "_vec_ctrl"),
+                              ("velocity", "VelocityAviary", "_vec_velocity"),
+                              ("hover", "HoverAviary", "_vec_hover"),
+                              ("multihover", "MultiHoverAviary", "_vec_multihover")):
+        _register(
+            id=f"cuda/{_name}-aviary-v0",
+            entry_point=f"gym_pybullet_drones_tpu_torch.compat.gym:{_cls}",
+            vector_entry_point=f"gym_pybullet_drones_tpu_torch.compat.vector:{_vec}",
+        )
+except Exception:  # pragma: no cover - gymnasium absent or double registration
+    pass

@@ -792,3 +792,99 @@ def test_k7_rejects_what_it_does_not_take(cuda):
         trv.render_views_cuda(pos, quat, arm, [2], c)
     with pytest.raises(ValueError):
         trv.render_views_cuda(pos[:, :, :2].contiguous(), quat, arm, [0], c)
+
+
+# The controllers (control/) and the shells' device functions (runtime/shell.py)
+# on the card against the CPU, float32, at tests/test_soa.py:52-59's limits.
+CARD_LIMITS = dict(pos=1e-3, vel=2e-3, quat=1e-3)
+
+
+def test_controllers_on_the_card_match_the_cpu(cuda):
+    """CTBR, MRAC (20 steps, gains carried), Mellinger (20 ticks, memory
+    carried) and the mission setpoint on 64 seeded drones; every entry point
+    defaults to the card."""
+    from gym_pybullet_drones_tpu_torch.control import commander as tcom
+    from gym_pybullet_drones_tpu_torch.control import ctbr as tctbr
+    from gym_pybullet_drones_tpu_torch.control import mellinger as tmel
+    from gym_pybullet_drones_tpu_torch.control import mrac as tmrac
+
+    assert tctbr.ctbr_params().k_p.is_cuda and tmrac.mrac_params().Am.is_cuda
+    assert tmel.mellinger_params().lpf.b0.is_cuda and tmel.mellinger_reset((2,)).i_error.is_cuda
+    rng = np.random.default_rng(0)
+    n = 64
+    q = rng.normal(size=(n, 4)) * 0.2 + np.array([0, 0, 0, 1.0])
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    raw = dict(pos=rng.uniform(-1, 1, (n, 3)) + [0, 0, 1], quat=q, vel=rng.uniform(-1, 1, (n, 3)),
+               ang=rng.uniform(-1, 1, (n, 3)), tgt=rng.uniform(-1, 1, (n, 3)) + [0, 0, 1])
+    out = []
+    for d in (cuda, torch.device("cpu")):
+        t = {k: torch.as_tensor(v, dtype=torch.float32, device=d) for k, v in raw.items()}
+        res = [tctbr.ctbr_control(tctbr.ctbr_params(device=d), t["pos"], t["quat"], t["vel"],
+                                  t["tgt"])]
+        mp = tmrac.mrac_params(device=d)
+        ms = tmrac.mrac_reset(mp, (n,))
+        mel_p, mel_s = tmel.mellinger_params(device=d), tmel.mellinger_reset((n,), device=d)
+        for _ in range(20):
+            rpm, ms, _, _ = tmrac.mrac_control(mp, ms, 1.0 / 120.0, t["pos"], t["quat"],
+                                               t["vel"], t["ang"], t["tgt"])
+            mrpm, mel_s = tmel.mellinger_rpm(mel_p, mel_s, t["pos"], t["vel"], t["quat"],
+                                             t["ang"] * 50.0, t["tgt"])
+        legs = tcom.plan_mission(raw["pos"], np.zeros(n), [{"pos": raw["tgt"], "duration": 2.0,
+                                                           "hold": 0.5}], device=d)
+        sp = tcom.mission_setpoint(legs, torch.full((n,), 1.3, device=d))
+        res += [rpm, ms.Kx, mrpm, mel_s.i_error_m, sp["pos"], sp["acc"]]
+        out.append([r.cpu() for r in res])
+    for card, cpu in zip(*out):
+        torch.testing.assert_close(card, cpu, rtol=1e-4, atol=1e-3)
+
+
+def test_shell_device_functions_on_the_card_match_the_cpu(cuda):
+    """shell_step (the single shell's step) and make_vec_core (VecAviary's),
+    Hover at 240/30 Hz, 30 steps (1 s) of seeded actions: obs on the card
+    against the CPU; the vector core's K7 launches once a control step on
+    an RGB config, its frames equal to the CPU's."""
+    from gym_pybullet_drones_tpu_torch.envs import spec as tspec
+    from gym_pybullet_drones_tpu_torch.ops import render_views as trv
+    from gym_pybullet_drones_tpu_torch.runtime import shell as tshell
+
+    cfg = tshell.shell_config(task="hover", pyb_freq=240, ctrl_freq=30, obstacles=True,
+                              action_buffer_size=15)
+    acts = np.random.default_rng(1).uniform(-0.3, 0.3, (30, 16, 1, 4)).astype(np.float32)
+    single, vec = [], []
+    for d in (cuda, torch.device("cpu")):
+        p = tbase.build_params(cfg, d)
+        cp, tgt = tbase.build_ctrl_params(cfg, d), tbase.hover_target_pos(cfg, p)
+        state, rows = tbase.reset(cfg, p), []
+        for a in acts[:, 0]:
+            state, obs, *_ = tshell.shell_step(cfg, p, cp, tgt, state, a)
+            rows.append(obs)
+        single.append(np.stack(rows))
+        reset, step = tshell.make_vec_core(cfg, p, cp, tgt, 16, d)
+        state, obs = reset()
+        rows = [obs]
+        for a in acts:
+            state, out = step(state, a)
+            rows.append(out[0])
+        vec.append(np.stack(rows))
+    np.testing.assert_allclose(*single, atol=1e-3)
+    np.testing.assert_allclose(*vec, atol=1e-3)
+
+    rgb = tshell.shell_config(task="hover", pyb_freq=240, ctrl_freq=30, obstacles=True,
+                              action_buffer_size=15, obs=tspec.ObservationType.RGB,
+                              frame_stack=4)
+    frames = []
+    for d in (cuda, torch.device("cpu")):
+        p = tbase.build_params(rgb, d)
+        reset, step = tshell.make_vec_core(rgb, p, tbase.build_ctrl_params(rgb, d),
+                                           tbase.hover_target_pos(rgb, p), 4, d)
+        state, obs = reset()
+        before = trv.render_views_cuda.launches
+        rows = [obs]
+        for a in acts[:6, :4]:
+            state, out = step(state, a)
+            rows.append(out[0])
+        if d.type == "cuda":
+            assert trv.render_views_cuda.launches - before == 6
+        frames.append(np.stack(rows))
+    assert frames[0].dtype == np.uint8 and frames[0].shape[-1] == 16
+    np.testing.assert_array_equal(*frames)
