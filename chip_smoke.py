@@ -179,7 +179,28 @@ Phases, one or more lines each:
      30 steps: K7 once a control step (counted from 0), frames equal to the
      CPU's on 8 envs byte for byte; (e) record=True for 48 steps: 48 frames
      of 128 x 96 through K7 and a video;
-  12. one JSON line of kernels (``ms``: CUDA events around the wrapper's
+  12. the firmware-in-the-loop envs and the rest of runtime/, through
+     envs/cf.py and envs/beta.py where gymnasium is installed, else through
+     the loops they wrap (runtime/firmware.py: CFShellEnv, BetaShellEnv over
+     runtime/shell.shell_step), saying so; the bridges built with g++: (a)
+     tests/test_cffirmware.py's mission (takeoff to 1 m, flown 3 s, then goto
+     (0.5, 0.5, 1), flown 4 s; 175 control steps at 500/25 Hz, 3,500 firmware
+     ticks) at its gates (z within 0.15 m, xy within 0.05 m, no tumble): ms
+     a tick, kernels a tick (torch.profiler), the card against the CPU over
+     the first second; (b) the Betaflight closed loop with MockSITL
+     (tests/test_betaflight.py:65-95, 500/500 Hz, 7 s) within 0.08 m: ms a
+     step; (c) a one-rank NCCL group (runtime/mesh.py):
+     make_sharded_swarm_physics on the pair-pass path (K2, K4 rectangular)
+     at N = 16384, PYB_DW with contact, 12 control steps, against the
+     unsharded "soa" step, and the binned swarm with its slot axis sharded
+     (K3, K6 rectangular) at N = 65536 (4 m pitch), with and without
+     contact, against the unsharded binned step; ms a control step of each;
+     launch counts of the sharded drives join the kernels line; (d) a PPO
+     runner at E = 4096 saved and restored into a fresh one: the next train
+     step bit for bit; (e) runtime/profiling.measure_throughput on K1's
+     rollout at E = 4096 beside phase 5's figure, and a trace written and
+     read back;
+  13. one JSON line of kernels (``ms``: CUDA events around the wrapper's
      calls; ``device_ms``: the device time of its kernels and memsets under
      torch.profiler, null if not measured), the nvidia-smi line, and the
      result line.
@@ -192,6 +213,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -269,7 +291,11 @@ from gym_pybullet_drones_tpu_torch.ops.interact_pairs import (
 )
 from gym_pybullet_drones_tpu_torch.ops.render_views import KERNEL as RENDER_KERNEL
 from gym_pybullet_drones_tpu_torch.ops.render_views import render_views_cuda
-from gym_pybullet_drones_tpu_torch.ops.swarm_binned import binned_geometry, make_binned_swarm
+from gym_pybullet_drones_tpu_torch.ops.swarm_binned import (
+    binned_geometry,
+    make_binned_swarm,
+    shard_binned_state,
+)
 from gym_pybullet_drones_tpu_torch.ops.swarm_soa import (
     make_sorted_swarm,
     make_swarm_step_soa,
@@ -304,6 +330,8 @@ from gym_pybullet_drones_tpu_torch.rl.ppo import (
     ppo_init,
     rollout_step,
 )
+from gym_pybullet_drones_tpu_torch.runtime import checkpoint, mesh as rmesh, profiling
+from gym_pybullet_drones_tpu_torch.runtime.firmware import BetaShellEnv, CFShellEnv
 from gym_pybullet_drones_tpu_torch.runtime.rollout import batch_reset, make_batched_step
 from gym_pybullet_drones_tpu_torch.runtime.shell import (
     host_copy,
@@ -314,8 +342,10 @@ from gym_pybullet_drones_tpu_torch.runtime.shell import (
 )
 from gym_pybullet_drones_tpu_torch.runtime.swarm import (
     make_big_swarm_physics,
+    make_sharded_swarm_physics,
     make_swarm_physics,
     select_swarm_backend,
+    shard_swarm_kin,
 )
 from gym_pybullet_drones_tpu_torch.utils.video import png_dir_to_video
 
@@ -2856,6 +2886,294 @@ def phase11b_shells(dev):
     print(f"[11b] phase 11b: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return k7_rgb + k7_rec
 
+# Phase 12: tests/test_cffirmware.py's mission and tests/test_betaflight.py's
+# closed loop, their gates; the sharded swarms' sizes and control steps.
+CF_GATES = dict(z=0.15, xy=0.05)
+BETA_TARGET, BETA_GATE, BETA_SEC = np.array([0.3, -0.2, 0.8]), 0.08, 7
+SHARD_T = 12
+# tests/test_swarm_binned_sharded.py: sharded against one device (pos, vel
+# 1e-6, quat 1e-7) and against the dense soa step (pos 1e-4, vel 1e-3)
+SHARD_EXACT_LIMITS = dict(pos=1e-6, vel=1e-6, quat=1e-7)
+SHARD_SOA_LIMITS = dict(pos=1e-4, vel=1e-3)
+
+
+def cf_env(device, gym_ok):
+    if gym_ok:
+        from gym_pybullet_drones_tpu_torch.envs.cf import CFAviary
+        return CFAviary(pyb_freq=500, ctrl_freq=25, device=device)
+    return CFShellEnv(pyb_freq=500, ctrl_freq=25, device=device)
+
+
+def phase12_cf(dev, gym_ok):
+    """(a) the CF mission through the firmware loop on the card."""
+    env = cf_env(dev, gym_ok)
+    env.reset()
+    env.sendTakeoffCmd(1.0, 2.0)
+    first, t0 = [], time.perf_counter()
+    for i in range(25 * 3):
+        obs = env.step(i)[0]
+        if i < 25:
+            first.append(obs[0, :3].copy())
+    z_after_takeoff = float(obs[0, 2])
+    env.sendGotoCmd([0.5, 0.5, 1.0], 0.0, 3.0, False)
+    for i in range(25 * 3, 25 * 7):
+        obs = env.step(i)[0]
+    secs = time.perf_counter() - t0
+    pos, ticks, err = obs[0, :3].astype(np.float64), env.tick, env._error
+    # two more control steps (20 ticks each), the second under torch.profiler:
+    # the kernels of a tick
+    more = iter(range(25 * 7, 25 * 8))
+    prof = profile_steps(lambda: env.step(next(more)), 1)
+    env.close()
+    xy = float(np.linalg.norm(pos[:2] - [0.5, 0.5]))
+    cpu = cf_env("cpu", gym_ok)
+    cpu.reset()
+    cpu.sendTakeoffCmd(1.0, 2.0)
+    gap = max(float(np.abs(cpu.step(i)[0][0, :3] - first[i]).max()) for i in range(25))
+    cpu.close()
+    ms_tick = secs * 1e3 / ticks
+    if prof is None:
+        fail("(a) torch.profiler saw no kernel of the firmware loop's sim steps on the card")
+    print(f"[12] (a) CF mission, {ticks} firmware ticks in {secs:.2f} s: {ms_tick:.4f} ms a tick "
+          f"(host clock; each tick one PYB substep through shell_step and its one copy back), "
+          f"{prof['kernels_per_step'] / 20:.1f} kernels and memsets a tick, card busy "
+          f"{prof['busy_ms'] / 20:.4f} ms a tick (torch.profiler); z after the takeoff "
+          f"{z_after_takeoff:.4f}, final {pos.round(4).tolist()}, |xy - goal| {xy:.4f} m (gates "
+          f"{json.dumps(CF_GATES)}), tumble {err}; card vs CPU over the first second (25 control "
+          f"steps) max |pos gap| {gap:.3g} m", flush=True)
+    if not (abs(z_after_takeoff - 1.0) < CF_GATES["z"] and abs(pos[2] - 1.0) < CF_GATES["z"]
+            and xy < CF_GATES["xy"]) or err or ticks != 3500:
+        fail("(a) the CF mission missed its gates on the card")
+    if not gap < 0.03:
+        fail(f"(a) the firmware loop's first second on the card parts from the CPU's by {gap} m")
+    return ms_tick
+
+
+def phase12_beta(dev, gym_ok):
+    """(b) the Betaflight closed loop with MockSITL on the card."""
+    from gym_pybullet_drones_tpu_torch.bridges.betaflight import MockSITL
+    from gym_pybullet_drones_tpu_torch.control.compat import CTBRControl
+    from gym_pybullet_drones_tpu_torch.envs.spec import DroneModel
+
+    sitl = MockSITL(0, "127.0.0.2").start()
+    kw = dict(drone_model=DroneModel.RACE, num_drones=1, pyb_freq=500, ctrl_freq=500,
+              udp_ip="127.0.0.2", device=dev)
+    if gym_ok:
+        from gym_pybullet_drones_tpu_torch.envs.beta import BetaAviary
+        env = BetaAviary(**kw)
+    else:
+        env = BetaShellEnv(**kw)
+    ctrl = CTBRControl(DroneModel.RACE, device=dev)
+    obs, _ = env.reset(seed=0)
+    action = np.zeros((1, 4))
+    t0 = time.perf_counter()
+    try:
+        for i in range(500 * BETA_SEC):
+            obs = env.step(action, i)[0]
+            if i / 500 > env.TRAJ_TIME:
+                action[0] = ctrl.computeControlFromState(1 / 500, obs[0], target_pos=BETA_TARGET)
+    finally:
+        env.close()
+        sitl.stop()
+    secs = time.perf_counter() - t0
+    err = float(np.linalg.norm(obs[0][:3] - BETA_TARGET))
+    ms_step = secs * 1e3 / (500 * BETA_SEC)
+    print(f"[12] (b) Betaflight closed loop (MockSITL, RACE, 500/500 Hz, {BETA_SEC} s): "
+          f"{ms_step:.4f} ms a step (host clock: the sim step, the CTBR controller on the card "
+          f"and the UDP exchange), final error {err:.4f} m (gate {BETA_GATE})", flush=True)
+    if not err < BETA_GATE:
+        fail(f"(b) the Betaflight loop ended {err} m from its target")
+    return ms_step
+
+
+def timed_steps(step, state, steps):
+    """``steps`` calls of ``state = step(state)`` between two synchronizes:
+    (state, ms a call)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = step(state)
+    torch.cuda.synchronize()
+    return state, (time.perf_counter() - t0) * 1e3 / steps
+
+
+def phase12_mesh(dev, params):
+    """(c) the sharded swarms on a one-rank NCCL group; returns the launches
+    of their drives."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    rmesh.init_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    launches = Counter()
+    try:
+        mesh = rmesh.make_mesh()
+        hover = float(params.hover_rpm)
+        n = SWARM_N[1]
+        rpm4 = torch.full((n, 4), hover, device=dev)
+        rpm = [torch.full((n,), hover, device=dev) for _ in range(4)]
+        sharded = make_sharded_swarm_physics(mesh, params, 1 / 240, 5, Physics.PYB_DW,
+                                             collisions=True, pallas=True)
+        step = lambda kin_: sharded(kin_, rpm4, rpm4)[0]
+        init, soa_step, export = make_swarm_physics(params, 1 / 240, 5, collisions=True,
+                                                    backend="soa")
+        # The towers lifted 2 m (no drone in touch with another or with the
+        # ground in 12 steps, though the lowest of each tower sinks about
+        # 1.2 m: the two pipelines differ by the order of their float32 sums
+        # alone) over SHARD_T control steps; the contact fleet (pairs in
+        # touch, whose thresholds a rounding may flip) over the JAX test's 3.
+        lifted = towers(n)
+        lifted[0][:, 2] += 2.0
+        for what, (pos, vel), steps in (("towers lifted 2 m", lifted, SHARD_T),
+                                        ("co-planar pairs beside towers", contact_fleet(n), 3)):
+            kin = fleet_kin(pos, vel, dev)
+            step(shard_swarm_kin(mesh, kin))  # warm-up
+            reset_pair_launches()
+            got, shard_ms = timed_steps(step, shard_swarm_kin(mesh, kin), steps)
+            counts = pair_launches()
+            launches.update(counts)
+            if (counts["K2"], counts["K4"]) != (5 * steps, 5 * steps):
+                fail(f"(c) the sharded swarm launched {counts}, not K2 = K4 = {5 * steps}")
+            soa_step(init(kin), rpm)  # warm-up
+            s, soa_ms = timed_steps(lambda s_: soa_step(s_, rpm), init(kin), steps)
+            gaps = kin_gaps(got, export(s, kin), SHARD_SOA_LIMITS)
+            moved = float((got.pos[:n // 2, :2] - kin.pos[:n // 2, :2]).abs().max())
+            print(f"[12] (c) one-rank NCCL group: make_sharded_swarm_physics (pair-pass path, K2 "
+                  f"and K4 rectangular, z_sort {_pairs.use_z_sort(None, n, n)}) N={n} {what}, "
+                  f"PYB_DW with contact, {steps} control steps: {shard_ms:.4f} ms a control step "
+                  f"against the unsharded soa step's {soa_ms:.4f} (host clock between "
+                  f"synchronizes); launches {counts}; gaps against the soa step "
+                  + json.dumps({k: float(f"{v:.3g}") for k, v in gaps.items()})
+                  + f" (limits {json.dumps(SHARD_SOA_LIMITS)}); the first half's largest "
+                  f"lateral move {moved:.4f} m", flush=True)
+            check_kin_gaps(f"(c) the sharded swarm against the soa step, {what}", gaps,
+                           SHARD_SOA_LIMITS)
+        if not moved > 1e-4:
+            fail("(c) no contact fired in the sharded swarm's co-planar pairs")
+
+        n, pitch = BINNED_FLEETS[1]
+        pos = lattice(n, pitch)
+        kin = init_kin_state(pos, np.tile([0.0, 0.0, 0.0, 1.0], (n, 1)), device=dev)
+        rpm = [torch.full((n,), hover, device=dev) for _ in range(4)]
+        for coll in (False, True):
+            init_s, step_s, export_s = make_swarm_physics(params, 1 / 240, 5, collisions=coll,
+                                                          init_pos=pos, mesh=mesh)
+            step_s(shard_binned_state(mesh, init_s(kin)), rpm)  # warm-up
+            reset_pair_launches()
+            s_sh = shard_binned_state(mesh, init_s(kin))
+            s_sh, sh_ms = timed_steps(lambda s_: step_s(s_, rpm), s_sh, SHARD_T)
+            a = export_s(s_sh, kin)
+            torch.cuda.synchronize()
+            counts = pair_launches()
+            launches.update(counts)
+            k = "K6" if coll else "K3"
+            if counts[k] < 5 * SHARD_T:
+                fail(f"(c) the sharded binned swarm launched {counts}, not {5 * SHARD_T} of {k}")
+            init_u, step_u, export_u = make_swarm_physics(params, 1 / 240, 5, collisions=coll,
+                                                          init_pos=pos)
+            step_u(init_u(kin), rpm)  # warm-up
+            s_u, un_ms = timed_steps(lambda s_: step_u(s_, rpm), init_u(kin), SHARD_T)
+            b = export_u(s_u, kin)
+            equal = all(torch.equal(getattr(a, f), getattr(b, f))
+                        for f in ("pos", "quat", "vel", "ang_v"))
+            gaps = kin_gaps(a, b, SHARD_EXACT_LIMITS)
+            print(f"[12] (c) binned N={n} pitch {pitch} m, slot axis sharded (K3/K6 "
+                  f"rectangular), collisions={coll}, {SHARD_T} control steps: {sh_ms:.4f} ms a "
+                  f"control step (a rebin every 4) against the unsharded "
+                  f"{un_ms:.4f}; launches {counts}; bit for bit equal to the unsharded: {equal}"
+                  + ("" if equal else "; gaps " + json.dumps(
+                      {f: float(f"{v:.3g}") for f, v in gaps.items()})), flush=True)
+            check_kin_gaps(f"(c) the sharded binned swarm collisions={coll}", gaps,
+                           SHARD_EXACT_LIMITS)
+    finally:
+        torch.distributed.destroy_process_group()
+    return launches
+
+
+def phase12_checkpoint(dev):
+    """(d) a PPO runner at E = 4096 through save and restore."""
+    cfg = AviaryConfig(**PPO_ENV)
+    ppo_cfg = PPOConfig(num_envs=PPO_WIDE, n_steps=16)
+    runner, aux = ppo_init(cfg, ppo_cfg, 5)
+    train = make_ppo_train_step(cfg, ppo_cfg, aux)
+    runner, _ = train(runner)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(tmp, runner, step=1)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        template, _ = ppo_init(cfg, ppo_cfg, 6)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = checkpoint.restore_checkpoint(tmp, template)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tmp) for f in fs)
+    r1, m1 = train(runner)
+    r2, m2 = train(restored)
+    same = (all(torch.equal(m1[k], m2[k]) for k in m1)
+            and all(torch.equal(a, b) for a, b in zip(r1.params.parameters(),
+                                                      r2.params.parameters()))
+            and torch.equal(r1.env_state.kin.pos, r2.env_state.kin.pos)
+            and torch.equal(r1.generator.get_state(), r2.generator.get_state()))
+    print(f"[12] (d) PPO runner E={PPO_WIDE}: save {save_ms:.1f} ms, restore {load_ms:.1f} ms "
+          f"(host clock), {size} bytes; the next train step after the restore bit for bit equal "
+          f"to the saved run's: {same}", flush=True)
+    if not same or not on_card(restored.env_state):
+        fail("(d) the restored runner's next train step differs, or its state left the card")
+
+
+def phase12_profiling(args, soa0, action, k_ms):
+    """(e) measure_throughput on K1's rollout beside phase 5, and a trace."""
+    rollout = make_velocity_rollout(*args, T_TIME, device=soa0["px"].device)
+    rate, _ = profiling.measure_throughput(rollout, soa0, action, iters=5, warmup=1,
+                                           items_per_call=E * T_TIME)
+    phase5 = E * T_TIME / (k_ms / 1e3)
+    short = make_velocity_rollout(*args, 48, device=soa0["px"].device)
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            for _ in range(3):
+                short(soa0, action)
+            torch.cuda.synchronize()
+        with open(os.path.join(tmp, "trace.json")) as fh:
+            events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "velocity_rollout_kernel" in str(e.get("name", ""))]
+    host = [e for e in events if e.get("cat") in ("cpu_op", "cuda_runtime")]
+    print(f"[12] (e) measure_throughput on K1's rollout, E={E}, T={T_TIME}, 5 chained calls: "
+          f"{rate:.6g} env-steps/s against phase 5's {phase5:.6g} (events, median); trace.json "
+          f"of 3 launches at T = 48 read back: {len(events)} events, {len(host)} host ops and "
+          f"runtime calls, {len(kernels)} device kernels, {len(k1)} of them K1's (a fresh "
+          "process records K1 here; after this script's earlier profiling, none)", flush=True)
+    if not (rate > 0 and host):
+        fail("(e) measure_throughput gave no rate, or the trace holds no host event")
+    return rate
+
+
+def phase12_runtime(dev, params, args, soa0, action, k_ms):
+    """Phase 12; returns the pair-kernel launches of the sharded drives."""
+    t_phase = time.perf_counter()
+    gym_ok = importlib.util.find_spec("gymnasium") is not None
+    print("[12] " + ("envs/cf.py and envs/beta.py (gymnasium installed)" if gym_ok else
+                     "gymnasium absent on this machine: the firmware loops run through "
+                     "runtime/firmware.CFShellEnv and BetaShellEnv, the loops CFAviary and "
+                     "BetaAviary wrap"), flush=True)
+    t0 = time.perf_counter()
+    phase12_cf(dev, gym_ok)
+    t_cf = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase12_beta(dev, gym_ok)
+    t_beta = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase12_checkpoint(dev)
+    phase12_profiling(args, soa0, action, k_ms)
+    t_de = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches = phase12_mesh(dev, params)
+    print(f"[12] phase 12: {time.perf_counter() - t_phase:.1f} s ((a) {t_cf:.1f}, (b) "
+          f"{t_beta:.1f}, (d) + (e) {t_de:.1f}, (c) {time.perf_counter() - t0:.1f})",
+          flush=True)
+    return launches
+
 
 def main():
     # ---------------- 1. device ----------------
@@ -3073,7 +3391,10 @@ def main():
     # ---------------- 11b. the Gymnasium shells ----------------
     k7["launches"] += phase11b_shells(dev)
 
-    # ---------------- 12. result ----------------
+    # ---------------- 12. firmware in the loop, the mesh, checkpoint, profiling ----------------
+    pair_main.update(phase12_runtime(dev, params, args, soa0, action, k_ms))
+
+    # ---------------- 13. result ----------------
     kernels = [{
         "name": f"K1 {KERNEL}", "route": "cuda",
         "source": "gym_pybullet_drones_tpu_torch/csrc/velocity_rollout.cu",
@@ -3116,7 +3437,7 @@ def main():
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
             fail(f"non-finite measurement for {k['name']}")
         if k["device_ms"] is None:
-            print(f"[12] {k['name']}: device_ms null, no torch.profiler trace held its kernels "
+            print(f"[13] {k['name']}: device_ms null, no torch.profiler trace held its kernels "
                   "(not measured)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

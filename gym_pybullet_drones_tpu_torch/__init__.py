@@ -7,7 +7,11 @@ slice 4: PPO and the BC warm start, ``rl/``, with domain-randomized params,
 ``render/`` with its kernel K7, RGB observations and ``CnnActorCritic``;
 slice 7: the controllers ``control/`` (CTBR, MRAC, Mellinger, the mission
 commander and the stateful shells of ``control/compat.py``), ``utils/``, and
-the Gymnasium shells ``compat/gym.py`` and ``compat/vector.py``).
+the Gymnasium shells ``compat/gym.py`` and ``compat/vector.py``; slice 8:
+the firmware-in-the-loop envs ``envs/cf.py`` and ``envs/beta.py`` over the
+native ``bridges/`` (built with g++ at first use), ``runtime/checkpoint.py``,
+``runtime/profiling.py`` and ``runtime/mesh.py`` over ``torch.distributed``
+with the sharded swarms).
 
 The JAX package ``gym_pybullet_drones_tpu`` stays the reference; this package
 never imports it or JAX. Entry points run on the CUDA card unless the caller
@@ -19,6 +23,15 @@ registers the shells under ids of their own, ``cuda/ctrl-aviary-v0``,
 package's ids stay its own.
 """
 
+# envs.spec first: control.dsl_pid imports it, and envs/__init__ imports
+# envs.base, which imports control.dsl_pid again.
+from gym_pybullet_drones_tpu_torch.envs.spec import (
+    ActionType,
+    DroneModel,
+    ImageType,
+    ObservationType,
+    Physics,
+)
 from gym_pybullet_drones_tpu_torch.control.dsl_pid import (
     DSLPIDParams,
     DSLPIDState,
@@ -41,13 +54,6 @@ from gym_pybullet_drones_tpu_torch.envs.base import (
     Aviary,
     AviaryConfig,
     AviaryState,
-)
-from gym_pybullet_drones_tpu_torch.envs.spec import (
-    ActionType,
-    DroneModel,
-    ImageType,
-    ObservationType,
-    Physics,
 )
 from gym_pybullet_drones_tpu_torch.ops.velocity_rollout import make_velocity_rollout
 from gym_pybullet_drones_tpu_torch.runtime.rollout import batch_reset, make_batched_step

@@ -33,8 +33,14 @@ the culling loosens. A row of live tiles over ``neighbor_cap`` takes the
 masked passes' overflow branch, the z-sorted dense kernels.
 
 Semantics match ``ops/swarm_soa.make_sorted_swarm``: the same substep chain
-and the same carried wake. Sharding the slot axis over several cards comes
-with the ``torch.distributed`` runtime (ROADMAP Queue 1 item 21).
+and the same carried wake.
+
+With ``mesh`` (a ``runtime/mesh.Mesh``) the slot axis is split over the
+ranks in whole-cell slabs. The substeps and the target side of each pair
+pass run on the rank's slab; the sources come through one all-gather per
+pair pass into K3's and K6's rectangular ``src`` / ``src_valid`` entries.
+The rebin is a global argsort: every rank gathers the whole layout, rebins
+it the same way and keeps its slab.
 """
 
 import math
@@ -68,10 +74,6 @@ _SENT = dict(px=0.0, py=0.0, pz=_ZPAD, qx=0.0, qy=0.0, qz=0.0, qw=1.0,
 _COLS = tuple(_SENT)  # SWARM_KEYS and the carried wake
 assert _COLS[:-1] == SWARM_KEYS
 
-_LATER = ("sharding the binned swarm over several cards comes with the torch.distributed "
-          "runtime (ROADMAP Queue 1 item 21)")
-
-
 def binned_geometry(pos, occ_target=256, headroom=1.25, max_cap=2048, min_cell=10.0, cell=None):
     """Host-side helper: pick ``(cell_size, nx, ny, cap)`` for an initial
     fleet.
@@ -103,15 +105,18 @@ def binned_geometry(pos, occ_target=256, headroom=1.25, max_cap=2048, min_cell=1
 
 
 def shard_binned_state(mesh, s, axis: str = "env"):
-    """Placing a binned state on several cards is not ported: it comes with
-    the ``torch.distributed`` runtime (ROADMAP Queue 1 item 21)."""
-    raise NotImplementedError(_LATER)
+    """This rank's slab of a binned state from ``init``: the slot-axis
+    columns split over ``mesh``, the step counter ``t`` kept whole."""
+    from gym_pybullet_drones_tpu_torch.runtime.mesh import env_sharding
+
+    sh = env_sharding(mesh, axis)
+    return {k: v if k == "t" else v[sh.rows(v.shape[0])] for k, v in s.items()}
 
 
 def make_binned_swarm(params: DroneParams, dt, n_substeps: int, collisions: bool = False,
                       cell_size: float = 10.0, nx: int = 8, ny: int = 8, cap: int = 256,
                       resort_every: int = 4, cone: bool = True, neighbor_cap=None, bt=None,
-                      bs=None, mesh=None, device=None):
+                      bs=None, mesh=None, axis: str = "env", device=None):
     """The binned cell-list coupled-swarm loop. Returns ``(init, step,
     export)`` with the contract of ``ops/swarm_soa.make_sorted_swarm`` (rpm
     columns in the drones' original order; ``export`` scatters back).
@@ -123,13 +128,25 @@ def make_binned_swarm(params: DroneParams, dt, n_substeps: int, collisions: bool
     itself. ``neighbor_cap`` live source tiles are kept per target row
     (default: twice the wake ring (2 ceil(10 / cell) + 1)^2 times cap // bs);
     a row over it takes the z-sorted dense passes, never drops a tile.
-    ``mesh`` raises: see ``shard_binned_state``. ``device=None`` means the
-    CUDA card, whose kernels are built here."""
-    if mesh is not None:
-        raise NotImplementedError(_LATER)
+
+    ``mesh``/``axis``: split the slot axis over the ranks (``nx * ny`` must
+    divide over them). ``init`` still takes and returns the whole fleet;
+    ``shard_binned_state`` keeps a rank's slab of it, ``step`` advances the
+    slab (rpm columns whole, in the drones' order) and ``export`` gathers the
+    whole fleet back on every rank. The result equals the single-process
+    loop's at equal tiles. ``device=None`` means the CUDA card, whose kernels
+    are built here."""
     device = resolve_device(device)
     ncells = nx * ny
     nslots = ncells * cap
+    if mesh is not None:
+        from gym_pybullet_drones_tpu_torch.runtime.mesh import all_gather, env_sharding
+
+        if ncells % mesh.shape[axis] != 0:
+            raise ValueError(f"cell count {nx}x{ny} must divide over the {mesh.shape[axis]} "
+                             f"ranks of the {axis!r} mesh axis (whole-cell slabs per rank)")
+        slab = env_sharding(mesh, axis).rows(nslots)
+        gather = lambda x: all_gather(mesh, x)
     bs = cap if bs is None else fit_block(bs, cap)
     bt = cap if bt is None else fit_block(bt, cap)
     if neighbor_cap is None:
@@ -211,7 +228,12 @@ def make_binned_swarm(params: DroneParams, dt, n_substeps: int, collisions: bool
         return s
 
     def _substeps(cols, valid, wrench):
-        """The substep chain over one rpm period."""
+        """The substep chain over one rpm period. Sharded, the pair passes'
+        sources are the gathered slot columns of every rank."""
+        src = src_valid = None
+        if mesh is not None:
+            src_valid = gather(valid)
+        src_keys = ("px", "py", "pz", "vx", "vy", "vz") if collisions else ("px", "py", "pz")
         for _ in range(n_substeps):
             stepped = physics_substep_soa(c, dt, *(cols[k] for k in SWARM_KEYS), wrench,
                                           fz_body=cols["mag"])
@@ -225,22 +247,33 @@ def make_binned_swarm(params: DroneParams, dt, n_substeps: int, collisions: bool
             # padding slots of live tiles with only its per-pair guards, and
             # (0, 0, z_min) passes them.
             cols = _freeze(cols, valid)
+            if mesh is not None:
+                src = tuple(gather(cols[k]) for k in src_keys)
             if collisions:
                 mag, dp, dv = ia_m.cols(cols["px"], cols["py"], cols["pz"],
-                                        cols["vx"], cols["vy"], cols["vz"], valid=valid)
+                                        cols["vx"], cols["vy"], cols["vz"], valid=valid,
+                                        src=src, src_valid=src_valid)
                 cols["mag"] = mag
                 for k, d in zip(("px", "py", "pz", "vx", "vy", "vz"), dp + dv):
                     cols[k] = cols[k] + d
             else:
-                cols["mag"] = dw_m.cols(cols["px"], cols["py"], cols["pz"], valid=valid)
+                cols["mag"] = dw_m.cols(cols["px"], cols["py"], cols["pz"], valid=valid,
+                                        src=src, src_valid=src_valid)
             cols = _freeze(cols, valid)
         return cols
+
+    def _whole(s):
+        """The whole layout from every rank's slab."""
+        return {k: v if k == "t" else gather(v) for k, v in s.items()}
 
     def step(s, rpm_cols):
         check_step_device(device, s)
         n = rpm_cols[0].shape[0]
         if s["t"] % resort_every == 0:
-            s = _rebin(s, n)
+            if mesh is None:
+                s = _rebin(s, n)
+            else:  # a global permutation: the same on every rank, then the slab
+                s = {k: v if k == "t" else v[slab] for k, v in _rebin(_whole(s), n).items()}
         ids, valid = s["ids"], s["valid"]
         safe = torch.clamp(ids, 0, n - 1)  # padding rows are frozen anyway
         wrench = motor_wrench_soa(c, [r[safe] for r in rpm_cols])
@@ -249,6 +282,8 @@ def make_binned_swarm(params: DroneParams, dt, n_substeps: int, collisions: bool
         return out
 
     def export(s, template):
+        if mesh is not None:
+            s = _whole(s)
         orig = _unbin(s, template.pos.shape[0])
         orig.pop("mag")
         return swarm_soa_to_kin(orig, template)

@@ -332,15 +332,23 @@ def _log_std_cap(ppo_cfg: PPOConfig, update_count: int):
     return float(f32(f32(ppo_cfg.log_std_init) + f32(delta * frac)))
 
 
-def rollout_step(net, step_env, env_state, obs, generator, n_det, layout):
+def rollout_step(net, step_env, env_state, obs, generator, n_det, layout, rows=None):
     """One control step of a PPO rollout: the policy's Gaussian sample (the
     first ``n_det`` envs take the mean), clipped to [-1, 1] and shaped
     (E, *layout), then ``step_env``. Returns ``(env_state, StepOutput,
-    Transition)``; call it under ``torch.no_grad()``."""
+    Transition)``; call it under ``torch.no_grad()``.
+
+    ``rows=(first, total)``: these E envs are rows ``first`` to ``first + E``
+    of a batch of ``total`` sharded over processes. The noise of all
+    ``total`` rows is drawn, as one process would draw it, and these rows
+    kept; ``n_det`` counts rows of the whole batch."""
     mean, log_std, value = net(obs)
-    noise = torch.randn(mean.shape, generator=generator, dtype=mean.dtype, device=mean.device)
+    first, total = (0, mean.shape[0]) if rows is None else rows
+    noise = torch.randn((total,) + tuple(mean.shape[1:]), generator=generator,
+                        dtype=mean.dtype, device=mean.device)
     if n_det > 0:
         noise[:n_det] = 0.0
+    noise = noise[first:first + mean.shape[0]]
     action = mean + torch.exp(log_std) * noise
     logp = _gaussian_log_prob(mean, log_std, action)
     env_state, out = step_env(env_state,
@@ -349,10 +357,20 @@ def rollout_step(net, step_env, env_state, obs, generator, n_det, layout):
                                       out.terminated | out.truncated)
 
 
-def make_ppo_train_step(env_cfg: AviaryConfig, ppo_cfg: PPOConfig, aux, anchor: bool = False):
+def make_ppo_train_step(env_cfg: AviaryConfig, ppo_cfg: PPOConfig, aux, anchor: bool = False,
+                        mesh=None):
     """Build ``train_step(runner, anchor_params=None) -> (runner, metrics)``:
     one rollout of ``n_steps`` over the env batch, then ``n_epochs`` x
     ``num_minibatches`` updates. The network and its Adam are updated in place.
+
+    ``mesh`` (``runtime/mesh.make_mesh``): the env axis is split over the
+    ranks. Each rank holds its slice of the runner's env state and
+    observations (``runtime/mesh.shard_env_batch``; of per-env
+    ``aux["train_params_env"]`` too) and the same network, Adam and
+    generator. It rolls out its slice with the whole batch's noise rows, the
+    rollout is all-gathered, and every rank runs the one-process update on
+    the whole batch: the same epoch permutations, minibatches and Adam steps,
+    so the ranks stay equal bit for bit.
 
     Given ``anchor_params`` (an ``ActorCritic``, e.g. the best
     deterministic-eval snapshot; ``anchor=True`` names that use, as in the JAX
@@ -367,6 +385,13 @@ def make_ppo_train_step(env_cfg: AviaryConfig, ppo_cfg: PPOConfig, aux, anchor: 
     n_drones, act_per = env_cfg.num_drones, env_cfg.action_dim
     n_det = int(round(ppo_cfg.det_frac * ppo_cfg.num_envs))
     bsz, nmb = ppo_cfg.batch_size, ppo_cfg.num_minibatches
+    if mesh is None:
+        rows, gather = None, lambda x, dim: x
+    else:
+        from gym_pybullet_drones_tpu_torch.runtime.mesh import all_gather, env_sharding
+
+        rows = (env_sharding(mesh).rows(ppo_cfg.num_envs).start, ppo_cfg.num_envs)
+        gather = lambda x, dim: all_gather(mesh, x, dim)
     mbs = bsz // nmb
     clip = ppo_cfg.clip_range
 
@@ -398,24 +423,25 @@ def make_ppo_train_step(env_cfg: AviaryConfig, ppo_cfg: PPOConfig, aux, anchor: 
         with torch.no_grad():
             for _ in range(ppo_cfg.n_steps):
                 env_state, out, tr = rollout_step(net, step_env, env_state, obs, gen, n_det,
-                                                  (n_drones, act_per))
+                                                  (n_drones, act_per), rows)
                 steps.append(tr)
                 finals.append(out.final_obs)
                 truncs.append(out.truncated & ~out.terminated)
                 obs = out.obs
-            traj = Transition(*(torch.stack(x) for x in zip(*steps)))
+            # (T, E) columns of the whole batch (sharded: gathered over the envs)
+            traj = Transition(*(gather(torch.stack(x), 1) for x in zip(*steps)))
             stats = dict(mean_reward=traj.reward.mean(),  # env reward, without the bootstrap
                          mean_value=traj.value.mean(), episodes_done=traj.done.sum())
             if n_det > 0:  # the mean policy's own training reward, per step
                 stats["mean_reward_det"] = traj.reward[:, :n_det].mean()
             # SB3's TimeLimit bootstrap: on truncation (not termination) add
             # gamma * V of the true next obs, from one batched forward.
-            final_obs = torch.stack(finals)
+            final_obs = gather(torch.stack(finals), 1)
             fv = net(final_obs.reshape((-1,) + final_obs.shape[2:]))[2].reshape(
                 final_obs.shape[:2])
-            traj = traj._replace(
-                reward=traj.reward + ppo_cfg.gamma * fv * torch.stack(truncs).to(fv.dtype))
-            last_value = net(obs)[2]
+            traj = traj._replace(reward=traj.reward + ppo_cfg.gamma * fv * gather(
+                torch.stack(truncs), 1).to(fv.dtype))
+            last_value = net(gather(obs, 0))[2]
             adv, ret = compute_gae(traj.value, traj.reward, traj.done, last_value,
                                    ppo_cfg.gamma, ppo_cfg.gae_lambda)
             flat = lambda x: x.reshape((-1,) + x.shape[2:])

@@ -22,6 +22,7 @@ from gym_pybullet_drones_tpu_torch.ops import swarm_binned as tbin
 from gym_pybullet_drones_tpu_torch.ops import swarm_soa as tswarm
 from gym_pybullet_drones_tpu_torch.ops.downwash_pairs import make_downwash_masked
 from gym_pybullet_drones_tpu_torch.ops.interact_pairs import make_interact_masked
+from gym_pybullet_drones_tpu_torch.runtime.mesh import Mesh
 from torch_parity import jit_reference
 
 LIMITS = dict(pos=1e-4, vel=1e-3, quat=1e-5)
@@ -215,10 +216,11 @@ def test_binned_layout_and_export(arm):
 
 def test_binned_swarm_rejects_what_it_does_not_take():
     tp = drone_params(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 21"):
-        tbin.make_binned_swarm(tp, 1 / 240, 5, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 21"):
-        tbin.shard_binned_state(object(), {})
+    three = Mesh(group=None, rank=0, size=3)
+    with pytest.raises(ValueError, match="8x8 must divide over the 3 ranks"):
+        tbin.make_binned_swarm(tp, 1 / 240, 5, mesh=three, device="cpu")
+    with pytest.raises(ValueError, match="does not split over 3 ranks"):
+        tbin.shard_binned_state(three, {"px": torch.zeros(256), "t": 0})
     init, step, _ = tbin.make_binned_swarm(tp, 1 / 240, 5, nx=1, ny=1, cap=128, device="cpu")
     with pytest.raises(ValueError, match="too small"):
         init(_tkin(_fleet(False)))

@@ -22,10 +22,10 @@ from gym_pybullet_drones_tpu_torch.core import dynamics as tdyn
 from gym_pybullet_drones_tpu_torch.core.params import drone_params
 from gym_pybullet_drones_tpu_torch.envs import base as tbase
 from gym_pybullet_drones_tpu_torch.envs import spec as tspec
-from gym_pybullet_drones_tpu_torch.runtime import rollout as troll
 from torch_parity import jit_reference
 
 jroll = importlib.import_module("gym_pybullet_drones_tpu.runtime.rollout")
+troll = importlib.import_module("gym_pybullet_drones_tpu_torch.runtime.rollout")
 F64 = torch.float64
 DT = 1.0 / 240.0
 LOWERED_NBR_MAX_N = 200

@@ -9,6 +9,8 @@ run on the GPU machine with
 Elsewhere every test skips (the card is looked for inside a fixture, so all
 pytest workers collect the same tests)."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -21,7 +23,8 @@ from gym_pybullet_drones_tpu_torch.ops import interact_pairs as tia
 from gym_pybullet_drones_tpu_torch.ops import spatial as tsp
 from gym_pybullet_drones_tpu_torch.ops import velocity_rollout as tro
 from gym_pybullet_drones_tpu_torch.ops import velocity_soa as tsoa
-from gym_pybullet_drones_tpu_torch.runtime import rollout as troll
+
+troll = importlib.import_module("gym_pybullet_drones_tpu_torch.runtime.rollout")
 
 pytestmark = pytest.mark.cuda
 
@@ -888,3 +891,123 @@ def test_shell_device_functions_on_the_card_match_the_cpu(cuda):
         frames.append(np.stack(rows))
     assert frames[0].dtype == np.uint8 and frames[0].shape[-1] == 16
     np.testing.assert_array_equal(*frames)
+
+
+# ---------------- the sharded swarms' rectangular passes; the native bridges ----------------
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_swarm_passes_match_plain_versions(cuda, world):
+    """runtime/swarm.make_sharded_swarm_physics's pair-pass path: each rank's
+    slab of N / world targets against the gathered N sources, through the
+    factories' rectangular entries (K2 z-sorted from 8192 drones, K4), against
+    the same factories on the CPU (the plain versions)."""
+    p = tbase.build_params(tbase.AviaryConfig(), "cpu")
+    n = 16384
+    _, cloud = _pair_cloud("cpu", n)
+    pos, vel = cloud[:3].T.contiguous(), cloud[3:].T.contiguous()
+    dw = {d: tdw.make_downwash(p, device=d) for d in (cuda, "cpu")}
+    co = {d: tco.make_collide(p, return_delta=True, device=d) for d in (cuda, "cpu")}
+    before = (tdw.downwash_cuda.launches, tco.collide_cuda.launches)
+    fired = 0.0
+    for r in range(world):
+        rows = slice(r * n // world, (r + 1) * n // world)
+        got = dw[cuda](pos[rows].to(cuda), src_pos=pos.to(cuda))
+        _wake_close(got.cpu(), dw["cpu"](pos[rows], src_pos=pos))
+        dp, dv = co[cuda](pos[rows].to(cuda), vel[rows].to(cuda), src_pos=pos.to(cuda),
+                          src_vel=vel.to(cuda))
+        wp, wv = co["cpu"](pos[rows], vel[rows], src_pos=pos, src_vel=vel)
+        torch.testing.assert_close(pos[rows] + dp.cpu(), pos[rows] + wp, rtol=0, atol=1e-6)
+        torch.testing.assert_close(vel[rows] + dv.cpu(), vel[rows] + wv, rtol=0, atol=1e-6)
+        fired = max(fired, float(dp.abs().max()))
+    assert fired > 0  # contacts fired
+    assert (tdw.downwash_cuda.launches - before[0], tco.collide_cuda.launches - before[1]) == (
+        world, world)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_binned_passes_match_plain_versions(cuda, world):
+    """ops/swarm_binned's sharded pair passes: a rank's slab of a binned layout
+    (whole cells) against every rank's gathered slot columns and padding, K3
+    and K6 through the masked factories' ``src`` / ``src_valid`` entries,
+    against the CPU's plain versions and against the square pass's rows."""
+    from gym_pybullet_drones_tpu_torch.core.dynamics import init_kin_state
+    from gym_pybullet_drones_tpu_torch.ops.swarm_binned import make_binned_swarm
+
+    p = tbase.build_params(tbase.AviaryConfig(), "cpu")
+    pos, vel = _spread_fleet(4096)
+    kin = init_kin_state(pos, np.tile([0.0, 0.0, 0.0, 1.0], (4096, 1)), device="cpu")
+    kin = kin.replace(vel=torch.as_tensor(vel))
+    init, _, _ = make_binned_swarm(p, 1 / 240, 5, cell_size=10.0, nx=2, ny=2, cap=2048,
+                                   device="cpu")
+    s = init(kin)
+    cols = [s[k] for k in ("px", "py", "pz", "vx", "vy", "vz")]
+    valid, nslots = s["valid"], s["px"].shape[0]
+    opts = dict(bt=2048, bs=2048, neighbor_cap=4, dense_fallback=False)
+    for maker, k in ((tdw.make_downwash_masked, 3), (tia.make_interact_masked, 6)):
+        dev_pass, cpu_pass = maker(p, device=cuda, **opts), maker(p, device="cpu", **opts)
+        square = cpu_pass.cols(*cols[:k], valid=valid)
+        for r in range(world):
+            rows = slice(r * nslots // world, (r + 1) * nslots // world)
+            args = dict(valid=valid[rows], src=tuple(cols[:k]), src_valid=valid)
+            want = cpu_pass.cols(*(c[rows] for c in cols[:k]), **args)
+            got = dev_pass.cols(*(c[rows].to(cuda) for c in cols[:k]),
+                                valid=valid[rows].to(cuda),
+                                src=tuple(c.to(cuda) for c in cols[:k]),
+                                src_valid=valid.to(cuda))
+            if k == 3:
+                _wake_close(got.cpu(), want)
+                assert torch.equal(want, square[rows])
+                continue
+            _wake_close(got[0].cpu(), want[0])
+            assert torch.equal(want[0], square[0][rows])
+            for g, w, c in zip(got[1] + got[2], want[1] + want[2], cols):
+                torch.testing.assert_close(c[rows] + g.cpu(), c[rows] + w, rtol=0, atol=1e-6)
+
+
+def test_native_bridges_build_and_run_on_the_gpu_machine(cuda):
+    """The bridges build with the machine's g++ into the port's _build/, the
+    firmware's planner and the UDP bridge run, and the firmware loop flies
+    one second on the card as on the CPU."""
+    import socket
+    import struct
+
+    from gym_pybullet_drones_tpu_torch.bridges import betaflight, cffirmware
+    from gym_pybullet_drones_tpu_torch.runtime.firmware import CFShellEnv
+
+    firm = cffirmware
+    firm.crtpCommanderHighLevelInit()
+    state = firm.state_t()
+    state.attitudeQuaternion.w = 1.0
+    firm.crtpCommanderHighLevelTellState(state)
+    firm.crtpCommanderHighLevelUpdateTime(0.0)
+    firm.crtpCommanderHighLevelTakeoff(1.0, 2.0)
+    sp = firm.setpoint_t()
+    firm.crtpCommanderHighLevelUpdateTime(2.0)
+    firm.crtpCommanderHighLevelGetSetpoint(sp, state)
+    assert abs(sp.position.z - 1.0) < 1e-5
+
+    recv = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    recv.bind(("127.0.0.2", 9003 + 10 * 7))
+    recv.settimeout(1.0)
+    bridge = betaflight.BetaBridge(7, "127.0.0.2")
+    try:
+        assert bridge.send_fdm(1.25, [0.1, 0.2, 0.3])
+        vals = struct.unpack("@dddddddddddddddddd", recv.recvfrom(1024)[0])
+    finally:
+        bridge.close()
+        recv.close()
+    np.testing.assert_allclose(vals[:4], [1.25, 0.1, -0.2, -0.3])
+
+    flights = []
+    for d in (cuda, "cpu"):
+        env = CFShellEnv(pyb_freq=500, ctrl_freq=25, device=d)
+        env.reset()
+        env.sendTakeoffCmd(1.0, 2.0)
+        for i in range(25):
+            obs = env.step(i)[0]
+        assert not env._error and env.tick == 500
+        assert env._state.kin.pos.device.type == torch.device(d).type
+        env.close()
+        flights.append(obs[0, :3])
+    np.testing.assert_allclose(*flights, atol=0.03)

@@ -23,10 +23,10 @@ from gym_pybullet_drones_tpu_torch.core.params import RANDOMIZABLE, drone_params
 from gym_pybullet_drones_tpu_torch.envs import base as tbase
 from gym_pybullet_drones_tpu_torch.envs import spec as tspec
 from gym_pybullet_drones_tpu_torch.rl import ppo as tppo
-from gym_pybullet_drones_tpu_torch.runtime import rollout as troll
 from torch_parity import jit_reference
 
 jroll = importlib.import_module("gym_pybullet_drones_tpu.runtime.rollout")
+troll = importlib.import_module("gym_pybullet_drones_tpu_torch.runtime.rollout")
 
 
 def _gen(seed):

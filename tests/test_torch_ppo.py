@@ -20,10 +20,10 @@ from gym_pybullet_drones_tpu_torch.envs import base as tbase
 from gym_pybullet_drones_tpu_torch.envs import spec as tspec
 from gym_pybullet_drones_tpu_torch.rl import ppo as tppo
 from gym_pybullet_drones_tpu_torch.rl import warmstart as tws
-from gym_pybullet_drones_tpu_torch.runtime import rollout as troll
 from torch_parity import jit_reference
 
 jroll = importlib.import_module("gym_pybullet_drones_tpu.runtime.rollout")
+troll = importlib.import_module("gym_pybullet_drones_tpu_torch.runtime.rollout")
 
 # The train-step limits, float32 (the JAX reference runs with x64 enabled, so
 # some of its constants and its noise are float64). Rewards: the 32-step

@@ -27,9 +27,9 @@ from gym_pybullet_drones_tpu_torch import _struct, convert
 from gym_pybullet_drones_tpu_torch.core.params import randomize_params
 from gym_pybullet_drones_tpu_torch.envs import base as tbase
 from gym_pybullet_drones_tpu_torch.envs import spec as tspec
-from gym_pybullet_drones_tpu_torch.runtime import rollout as troll
 
 jroll = importlib.import_module("gym_pybullet_drones_tpu.runtime.rollout")
+troll = importlib.import_module("gym_pybullet_drones_tpu_torch.runtime.rollout")
 
 PIXEL_SHARE = 0.001  # frame pixels allowed past 1 in a channel
 KIN_ATOL, REWARD_ATOL = 1e-5, 1e-5

@@ -24,6 +24,7 @@ from gym_pybullet_drones_tpu_torch.envs.spec import Physics
 from gym_pybullet_drones_tpu_torch.ops import swarm_binned as tbin
 from gym_pybullet_drones_tpu_torch.ops import swarm_soa as tswarm
 from gym_pybullet_drones_tpu_torch.runtime import swarm as trt
+from gym_pybullet_drones_tpu_torch.runtime.mesh import Mesh
 from torch_parity import jit_reference
 
 LIMITS = dict(pos=1e-5, vel=1e-4, quat=1e-6, ang_v=1e-4, rpy_rates=1e-4)
@@ -152,16 +153,20 @@ def test_select_swarm_backend_matches_jax(n, pitch):
 
 
 def test_swarm_backends_of_later_slices_raise():
-    """What is left for later: a mesh (the torch.distributed runtime, ROADMAP
-    item 21). The binned and the sorted backends run."""
+    """What the factory rejects: a mesh for the dense soa backend (it does not
+    shard the drone axis), an explicit cell grid that does not split in whole
+    cells over the mesh's ranks, a slot axis that does not split over them.
+    The binned and the sorted backends run, and the binned one shards
+    (tests/test_torch_distributed.py)."""
     tp = drone_params(device="cpu")
-    with pytest.raises(NotImplementedError, match="torch.distributed.*item 21"):
-        trt.make_swarm_physics(tp, 1 / 240, 5, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="torch.distributed.*item 21"):
+    three = Mesh(group=None, rank=0, size=3)
+    with pytest.raises(ValueError, match="does not shard the drone axis"):
+        trt.make_swarm_physics(tp, 1 / 240, 5, backend="soa", mesh=three, device="cpu")
+    with pytest.raises(ValueError, match="must divide over the 3 ranks"):
         trt.make_swarm_physics(tp, 1 / 240, 5, backend="binned", cell_size=10.0, nx=2, ny=2,
-                               cap=128, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 21"):
-        tbin.shard_binned_state(object(), {})
+                               cap=128, mesh=three, device="cpu")
+    with pytest.raises(ValueError, match="does not split over 3 ranks"):
+        tbin.shard_binned_state(three, {"px": torch.zeros(128), "t": 0})
     with pytest.raises(ValueError, match="unknown swarm backend"):
         trt.make_swarm_physics(tp, 1 / 240, 5, backend="dense", device="cpu")
     if not torch.cuda.is_available():

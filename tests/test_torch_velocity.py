@@ -17,11 +17,11 @@ from gym_pybullet_drones_tpu_torch import convert
 from gym_pybullet_drones_tpu_torch.envs import base as tbase
 from gym_pybullet_drones_tpu_torch.ops import velocity_rollout as tro
 from gym_pybullet_drones_tpu_torch.ops import velocity_soa as tsoa
-from gym_pybullet_drones_tpu_torch.runtime import rollout as troll
 from torch_parity import jit_reference
 
 # The JAX runtime package re-exports a function named `rollout` over its module.
 jroll = importlib.import_module("gym_pybullet_drones_tpu.runtime.rollout")
+troll = importlib.import_module("gym_pybullet_drones_tpu_torch.runtime.rollout")
 
 
 def _setup(dtype):
