@@ -200,7 +200,21 @@ Phases, one or more lines each:
      step bit for bit; (e) runtime/profiling.measure_throughput on K1's
      rollout at E = 4096 beside phase 5's figure, and a trace written and
      read back;
-  13. one JSON line of kernels (``ms``: CUDA events around the wrapper's
+  13. the ten examples through their entry points on the card
+     (gym_pybullet_drones_tpu_torch/examples/), in a few ``python3
+     chip_smoke.py --example NAME ...`` processes at once, at
+     tests/test_examples.py's settings and gates, each with its wall seconds
+     and ms a control step: pid (4 s; the card against the CPU in float32
+     over the first 0.5 s, in float64 over the first second), pid_velocity,
+     downwash, mrac, cf and beta (through the shell loops where gymnasium is
+     absent; MockSITL on 127.0.0.2), learn at the CI budget, single-agent
+     (then play on the file it wrote) and multi-agent, play on
+     checkpoints/one_d_rpm_hover.msgpack against JAX's return, debug, and
+     trajopt's first 10 Adam iterates against the CPU's.
+     ``python3 chip_smoke.py --examples [GROUP ...]`` runs this phase alone,
+     each GROUP a comma-separated list of names, among them trajopt_full
+     (200 iterations, about 530 s on the card), which the full run leaves out;
+  14. one JSON line of kernels (``ms``: CUDA events around the wrapper's
      calls; ``device_ms``: the device time of its kernels and memsets under
      torch.profiler, null if not measured), the nvidia-smi line, and the
      result line.
@@ -208,6 +222,7 @@ Phases, one or more lines each:
 
 import contextlib
 import dataclasses
+import functools
 import importlib.util
 import json
 import math
@@ -219,6 +234,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from collections import Counter, defaultdict
 from concurrent.futures import ThreadPoolExecutor
 
@@ -3175,6 +3191,397 @@ def phase12_runtime(dev, params, args, soa0, action, k_ms):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the examples on the card. Each example runs through its run() (or
+# play(), main()) in ``python3 chip_smoke.py --example NAME ...`` processes,
+# a few at once: the examples are host-bound loops of small launches, and the
+# machine has cores to spare. Gates are tests/test_examples.py's.
+# ---------------------------------------------------------------------------
+
+# JAX's examples/play.play on checkpoints/one_d_rpm_hover.msgpack (8 s, one
+# env) on a CPU in float32, jax 0.9.0, computed once: the port's play on the
+# card must return at least this less 0.5.
+JAX_PLAY_ONE_D_RPM_HOVER = 470.0426025390625
+EXAMPLE_GROUPS = (("learn",), ("learn_multiagent",), ("play_checkpoint", "mrac", "pid", "debug"),
+                  ("cf", "beta", "downwash"), ("pid_velocity", "trajopt"))
+# phase 13's budget: one deadline for all its workers (a separate
+# ``--examples`` call may run longer ones, such as trajopt_full)
+EXAMPLE_TIMEOUT = 300
+EXAMPLES_ONLY_TIMEOUT = 900
+# pid on the card against the CPU (m, m/s): float32 over the first 0.5 s (the
+# two part by rounding from the first step, and the helix's closed loop grows
+# the gap about tenfold every 0.15 s: 7.3e-4 m at 1 s on the H100), float64
+# over the whole first second.
+PID_CPU_LIMITS = {"float32": dict(pos=1e-4, vel=1e-3, steps=24),
+                  "float64": dict(pos=1e-9, vel=1e-8, steps=48)}
+# pid_velocity and downwash on the card against the CPU in float64 over 1 s
+# (m, m/s), held over the control steps that tests/test_torch_example_parity.py
+# holds the port against JAX: pid_velocity's velocity loop grows an ulp's gap
+# about fiftyfold every 0.25 s, so its first 0.75 s.
+F64_CPU_LIMITS = {"pid_velocity": dict(pos=1e-9, vel=1e-8, steps=36),
+                  "downwash": dict(pos=1e-9, vel=1e-8, steps=48)}
+EXAMPLE_BETA_IP = "127.0.0.2"
+# learn at the CI budget: one 128-step rollout of 4 envs, the 260-step
+# evaluation, the 2,600-step final one and the 240-step logged replay.
+LEARN_CI_STEPS = 128 + 260 + 2600 + 240
+TRAJOPT_CHECK_ITERS = 10
+
+
+def example_line(name, secs, count, unit, extra):
+    print(f"[13] {name}: {secs:.2f} s wall, {secs * 1e3 / count:.3f} ms a {unit} ({count} "
+          f"{unit}s); {extra}", flush=True)
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def example_dtype(module, dtype):
+    """Run ``module``'s example with its ``AviaryConfig`` in ``dtype``."""
+    config = module.AviaryConfig
+    module.AviaryConfig = functools.partial(config, dtype=dtype)
+    try:
+        yield
+    finally:
+        module.AviaryConfig = config
+
+
+def pid_gaps(a, b):
+    """Max |gap| of position and velocity, per control step, of two loggers'
+    (drones, 16, T) states over their common steps."""
+    t = min(a.shape[2], b.shape[2])
+    d = np.abs(a[:, :, :t] - b[:, :, :t])
+    return d[:, 0:3].max(axis=(0, 1)), d[:, 3:6].max(axis=(0, 1))
+
+
+def ex_pid(dev, out):
+    from gym_pybullet_drones_tpu_torch.examples import pid
+
+    folder = os.path.join(out, "pid")
+    logger, secs = timed(lambda: pid.run(plot=False, output_folder=folder, duration_sec=4,
+                                         device=dev))
+    st, bad = logger.states, []
+    alt = st[:, 2, -1]
+    if not (st.shape == (3, 16, 192) and np.allclose(alt, [0.1, 0.15, 0.2], atol=0.02)):
+        bad.append(f"altitudes {alt.tolist()} of {st.shape}, gate [0.1, 0.15, 0.2] at 0.02")
+    if not any(p.startswith("save-flight-pid-") for p in os.listdir(folder)):
+        bad.append("no save-flight-pid-* CSV directory")
+    example_line("pid", secs, 192, "control step",
+                 f"3 drones, 4 s at 240/48 Hz; final altitudes {alt.round(5).tolist()} (gate "
+                 "[0.1, 0.15, 0.2] at 0.02); CSV directory written")
+    cpu = pid.run(plot=False, output_folder=folder, duration_sec=1, device="cpu").states
+    with example_dtype(pid, "float64"):
+        card64 = pid.run(plot=False, output_folder=folder, duration_sec=1, device=dev).states
+        cpu64 = pid.run(plot=False, output_folder=folder, duration_sec=1, device="cpu").states
+    for what, (a, b) in (("float32", (st, cpu)), ("float64", (card64, cpu64))):
+        pos, vel = pid_gaps(a, b)
+        lim = PID_CPU_LIMITS[what]
+        n = lim["steps"]
+        print(f"[13] pid card vs CPU, {what}: max |pos gap| at 0.25 / 0.5 / 0.75 / 1 s "
+              f"{pos[11]:.3g} / {pos[23]:.3g} / {pos[35]:.3g} / {pos[47]:.3g} m, |vel gap| "
+              f"{vel[11]:.3g} / {vel[23]:.3g} / {vel[35]:.3g} / {vel[47]:.3g} m/s (limits "
+              f"{lim['pos']} m, {lim['vel']} m/s over the first {n} control steps)", flush=True)
+        if not (pos[:n].max() <= lim["pos"] and vel[:n].max() <= lim["vel"]):
+            bad.append(f"card vs CPU ({what}) over {n} control steps: pos {pos[:n].max():.3g} m, "
+                       f"vel {vel[:n].max():.3g} m/s")
+    return bad
+
+
+def card_vs_cpu64(name, module, dev, out):
+    """``module``'s 1-s flight in float64 on the card and on the CPU, held at
+    F64_CPU_LIMITS[name]; returns the gates it missed."""
+    with example_dtype(module, "float64"):
+        card = module.run(plot=False, output_folder=out, duration_sec=1, device=dev).states
+        cpu = module.run(plot=False, output_folder=out, duration_sec=1, device="cpu").states
+    pos, vel = pid_gaps(card, cpu)
+    lim = F64_CPU_LIMITS[name]
+    n = lim["steps"]
+    print(f"[13] {name} card vs CPU, float64: max |pos gap| {pos[:n].max():.3g} m, |vel gap| "
+          f"{vel[:n].max():.3g} m/s over the first {n} control steps (limits {lim['pos']} m, "
+          f"{lim['vel']} m/s); at 1 s {pos[-1]:.3g} m, {vel[-1]:.3g} m/s", flush=True)
+    if card.shape == cpu.shape and pos[:n].max() <= lim["pos"] and vel[:n].max() <= lim["vel"]:
+        return []
+    return [f"card vs CPU (float64) over {n} control steps: pos {pos[:n].max():.3g} m, vel "
+            f"{vel[:n].max():.3g} m/s"]
+
+
+def ex_pid_velocity(dev, out):
+    from gym_pybullet_drones_tpu_torch.examples import pid_velocity
+
+    logger, secs = timed(lambda: pid_velocity.run(plot=False, output_folder=out, device=dev))
+    st = logger.states
+    ok = st.shape == (4, 16, 240) and bool(np.isfinite(st).all())
+    example_line("pid_velocity", secs, 240, "control step",
+                 f"4 drones, 5 s; states {st.shape}, finite {bool(np.isfinite(st).all())}")
+    bad = [] if ok else [f"states {st.shape}, finite {bool(np.isfinite(st).all())}"]
+    return bad + card_vs_cpu64("pid_velocity", pid_velocity, dev, out)
+
+
+def ex_downwash(dev, out):
+    from gym_pybullet_drones_tpu_torch.examples import downwash
+
+    logger, secs = timed(lambda: downwash.run(plot=False, output_folder=out, duration_sec=4,
+                                              device=dev))
+    z0, z1 = logger.states[0, 2, -1], logger.states[1, 2, -1]
+    example_line("downwash", secs, 192, "control step",
+                 f"2 drones, PYB_DW, 4 s; final z {z0:.5f}, {z1:.5f} (gates 1.0 at 0.1, 0.5 "
+                 "at 0.15)")
+    bad = [] if abs(z0 - 1.0) < 0.1 and abs(z1 - 0.5) < 0.15 else [f"final z {z0}, {z1}"]
+    return bad + card_vs_cpu64("downwash", downwash, dev, out)
+
+
+def ex_mrac(dev, out):
+    from gym_pybullet_drones_tpu_torch.examples import mrac
+
+    pos, secs = timed(lambda: mrac.run(plot=False, output_folder=out, duration_sec=10,
+                                       device=dev))
+    example_line("mrac", secs, 1200, "control step",
+                 f"10 s at 240/120 Hz; final position {pos.round(5).tolist()} (gate z 1.0 at "
+                 "0.05)")
+    bad = [] if abs(pos[2] - 1.0) < 0.05 else [f"final z {pos[2]}"]
+    with example_dtype(mrac, "float64"):
+        card = mrac.run(plot=False, output_folder=out, duration_sec=1, device=dev)
+        cpu = mrac.run(plot=False, output_folder=out, duration_sec=1, device="cpu")
+    gap = float(np.abs(card - cpu).max())
+    print(f"[13] mrac card vs CPU, float64: final position gap after 1 s {gap:.3g} m (limit "
+          "1e-09 m)", flush=True)
+    return bad + ([] if gap <= 1e-9 else [f"card vs CPU (float64) after 1 s: {gap:.3g} m"])
+
+
+def ex_cf(dev, out):
+    from gym_pybullet_drones_tpu_torch.examples import cf
+
+    logger, secs = timed(lambda: cf.run(plot=False, output_folder=out, duration_sec=8,
+                                        device=dev))
+    st = logger.states
+    z = st[0, 2, -1]
+    example_line("cf", secs, 200, "control step",
+                 f"8 s at 500/25 Hz (4,000 firmware ticks); final z {z:.5f} (gate 0.5 at 0.15)")
+    ok = bool(np.isfinite(st).all()) and abs(z - 0.5) < 0.15
+    return [] if ok else [f"final z {z}, finite {bool(np.isfinite(st).all())}"]
+
+
+def ex_beta(dev, out):
+    from gym_pybullet_drones_tpu_torch.examples import beta
+
+    logger, secs = timed(lambda: beta.run(plot=False, output_folder=out, duration_sec=5,
+                                          udp_ip=EXAMPLE_BETA_IP, device=dev))
+    st = logger.states
+    z = st[0, 2, -1]
+    example_line("beta", secs, 2500, "control step",
+                 f"MockSITL on {EXAMPLE_BETA_IP}, RACE, 5 s at 500/500 Hz; final z {z:.5f} "
+                 "(gate > 0.5)")
+    return [] if bool(np.isfinite(st).all()) and z > 0.5 else [f"final z {z}"]
+
+
+def ex_debug(dev, out):
+    from gym_pybullet_drones_tpu_torch.examples import debug
+
+    res, secs = timed(lambda: debug.main(device=dev))
+    n, dt = 240, 1.0 / 240.0
+    # the integrator's closed form (velocity, then position): 5.0796 m, not
+    # the continuous 10 - 9.8 / 2
+    want = 10.0 - 9.8 * dt * dt * n * (n + 1) / 2
+    hz, vz = float(res["hover_pos"][2]), float(res["hover_vel"][2])
+    example_line("debug", secs, 504, "substep",
+                 f"hover z {hz:.7f}, vz {vz:.3g} (gates |z - 1| < 1e-4, |vz| < 1e-4); free-fall "
+                 f"z {float(res['fall_z']):.6f} against {want:.6f} (gate 1e-3)")
+    ok = abs(hz - 1.0) < 1e-4 and abs(vz) < 1e-4 and abs(float(res["fall_z"]) - want) < 1e-3
+    return [] if ok else [f"hover z {hz}, vz {vz}, free fall {res['fall_z']}"]
+
+
+def ex_learn(dev, out, multiagent=False):
+    from gym_pybullet_drones_tpu_torch.examples import learn, play
+
+    name = "learn_multiagent" if multiagent else "learn"
+    folder = os.path.join(out, name)
+    evals, secs = timed(lambda: learn.run(plot=False, output_folder=folder, local=False,
+                                          num_envs=4, multiagent=multiagent, device=dev))
+    model = os.path.join(folder, "best_model.msgpack")
+    ok = len(evals) >= 1 and math.isfinite(evals[-1][1]) and os.path.exists(model)
+    example_line(name, secs, LEARN_CI_STEPS, "control step",
+                 f"CI budget (local=False, 4 envs): evaluations {evals}; best_model.msgpack "
+                 f"written: {os.path.exists(model)}")
+    bad = [] if ok else [f"evaluations {evals}, model written {os.path.exists(model)}"]
+    if not multiagent:
+        total, secs = timed(lambda: play.play(model_path=model, output_folder=folder,
+                                              plot=False, device=dev))
+        example_line("play (learn's model)", secs, 240, "control step",
+                     f"8 s replay of the file learn wrote: return {total:.5f}")
+        if not math.isfinite(total):
+            bad.append(f"play on learn's model returned {total}")
+    return bad
+
+
+def ex_learn_multiagent(dev, out):
+    return ex_learn(dev, out, multiagent=True)
+
+
+def ex_play_checkpoint(dev, out):
+    from gym_pybullet_drones_tpu_torch.examples import play
+
+    model = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints",
+                         "one_d_rpm_hover.msgpack")
+    total, secs = timed(lambda: play.play(model_path=model, output_folder=out, plot=False,
+                                          device=dev))
+    gate = JAX_PLAY_ONE_D_RPM_HOVER - 0.5
+    example_line("play (one_d_rpm_hover)", secs, 240, "control step",
+                 f"8 s return {total:.5f}; JAX's play on the CPU {JAX_PLAY_ONE_D_RPM_HOVER} "
+                 f"(gate >= {gate:.5f})")
+    return [] if total >= gate else [f"return {total} under {gate}"]
+
+
+@contextlib.contextmanager
+def adam_iterates():
+    """Keep a host copy of the parameters each ``torch.optim.Adam.step``
+    leaves (trajopt's schedule), as tests/test_torch_differentiability.py
+    does."""
+    iterates, step = [], torch.optim.Adam.step
+
+    def recording_step(self, *args, **kwargs):
+        out = step(self, *args, **kwargs)
+        iterates.append(self.param_groups[0]["params"][0].detach().cpu().numpy().copy())
+        return out
+
+    torch.optim.Adam.step = recording_step
+    try:
+        yield iterates
+    finally:
+        torch.optim.Adam.step = step
+
+
+def trajopt_run(device, iters, out):
+    """trajopt.run: ((err, vel), seconds, loss, the iterates); the loss is
+    trajopt's |pos - target|^2 + 0.1 |vel|^2 at the schedule it returns."""
+    from gym_pybullet_drones_tpu_torch.examples import trajopt
+
+    with adam_iterates() as iterates:
+        (err, vel), secs = timed(lambda: trajopt.run(iters=iters, plot=False, output_folder=out,
+                                                     device=device))
+    return (err, vel), secs, err ** 2 + 0.1 * vel ** 2, iterates
+
+
+def ex_trajopt(dev, out):
+    _, _, loss0, _ = trajopt_run(dev, 0, out)
+    _, secs, loss, card = trajopt_run(dev, TRAJOPT_CHECK_ITERS, out)
+    _, cpu_secs, _, cpu = trajopt_run("cpu", TRAJOPT_CHECK_ITERS, out)
+    card, cpu = np.stack(card), np.stack(cpu)
+    rel = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    example_line("trajopt", secs, TRAJOPT_CHECK_ITERS, "iteration",
+                 f"{secs * 1e3 / (TRAJOPT_CHECK_ITERS * 48):.3f} ms a control step forward and "
+                 f"back (48 steps, float64); loss {loss0:.6f} at the hover schedule -> {loss:.6f} "
+                 f"after {TRAJOPT_CHECK_ITERS}; the iterates against the CPU's: max gap "
+                 f"{rel:.3g} of the largest (gate 1e-9; the CPU took {cpu_secs:.2f} s)")
+    ok = card.shape == cpu.shape == (TRAJOPT_CHECK_ITERS, 48) and rel <= 1e-9 and loss < 0.5 * loss0
+    return [] if ok else [f"iterates {card.shape} part from the CPU's by {rel}, loss {loss0} -> "
+                          f"{loss}"]
+
+
+def ex_trajopt_full(dev, out):
+    """tests/test_examples.py::test_trajopt_example's settings: 1 s horizon,
+    200 Adam iterations, within 1 cm of the target at under 5 cm/s."""
+    (err, vel), secs, loss, _ = trajopt_run(dev, 200, out)
+    example_line("trajopt (200 iterations)", secs, 200, "iteration",
+                 f"final loss {loss:.6g}; final error {err:.6f} m, speed {vel:.6f} m/s (gates "
+                 "0.01, 0.05)")
+    return [] if err < 0.01 and vel < 0.05 else [f"error {err} m, speed {vel} m/s"]
+
+
+EXAMPLES = {"pid": ex_pid, "pid_velocity": ex_pid_velocity, "downwash": ex_downwash,
+            "mrac": ex_mrac, "cf": ex_cf, "beta": ex_beta, "debug": ex_debug,
+            "learn": ex_learn, "learn_multiagent": ex_learn_multiagent,
+            "play_checkpoint": ex_play_checkpoint, "trajopt": ex_trajopt,
+            "trajopt_full": ex_trajopt_full}
+
+
+def kernel_launches():
+    return dict(K1=velocity_rollout_cuda.launches, **pair_launches(),
+                K7=render_views_cuda.launches)
+
+
+def example_worker(names):
+    """``python3 chip_smoke.py --example NAME ...``: the named examples on the
+    card, one after the other; exits non-zero if any missed a gate or raised."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    torch.set_num_threads(2)  # a few of these run at once
+    dev = torch.device("cuda")
+    bad = []
+    with tempfile.TemporaryDirectory() as out:
+        for name in names:
+            try:
+                bad += [f"{name}: {b}" for b in EXAMPLES[name](dev, out)]
+            except Exception as exc:  # the next examples still run; the process fails
+                traceback.print_exc()
+                bad.append(f"{name} raised {type(exc).__name__}: {exc}")
+    print(f"[13] {'+'.join(names)}: kernel launches {json.dumps(kernel_launches())} (none of "
+          "K1-K7 lies on the examples' paths)", flush=True)
+    if bad:
+        fail("; ".join(bad))
+    return 0
+
+
+def phase13_examples(groups=EXAMPLE_GROUPS, timeout=EXAMPLE_TIMEOUT):
+    """The examples in one ``--example`` process a group, all groups at once,
+    each writing to its own files (no pipe stalls a worker), under one
+    deadline for them all."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"[13] the examples through their entry points on the card, {len(groups)} processes "
+          f"at once: {' | '.join(', '.join(g) for g in groups)}", flush=True)
+    failed, procs = [], []
+    with tempfile.TemporaryDirectory() as logs:
+        try:
+            for k, group in enumerate(groups):
+                out = open(os.path.join(logs, f"{k}.out"), "w+")
+                err = open(os.path.join(logs, f"{k}.err"), "w+")
+                procs.append((group, out, err, subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--example", *group],
+                    stdout=out, stderr=err, text=True)))
+            deadline = time.monotonic() + timeout
+            for group, out, err, proc in procs:
+                try:
+                    proc.wait(timeout=max(0.0, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    pass
+        finally:
+            for _, _, _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for group, out, err, proc in procs:
+            out.seek(0)
+            err.seek(0)
+            print(out.read().rstrip(), flush=True)
+            if proc.returncode != 0:
+                failed.append(f"{'+'.join(group)} exited {proc.returncode}: {err.read()[-3000:]}")
+            out.close()
+            err.close()
+    print(f"[13] phase 13: {time.perf_counter() - t_phase:.1f} s on {nvidia_smi_line()}",
+          flush=True)
+    if failed:
+        fail("phase 13: " + " || ".join(failed))
+
+
+def examples_only(groups):
+    """``python3 chip_smoke.py --examples [GROUP ...]``: phase 13 alone, each
+    GROUP a comma-separated list of example names (default: phase 13's)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    print(f"[1] device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}; nvidia-smi: {nvidia_smi_line()}", flush=True)
+    phase13_examples(tuple(tuple(g.split(",")) for g in groups) or EXAMPLE_GROUPS,
+                     EXAMPLES_ONLY_TIMEOUT)
+    return 0
+
+
+
 def main():
     # ---------------- 1. device ----------------
     if not torch.cuda.is_available():
@@ -3394,7 +3801,10 @@ def main():
     # ---------------- 12. firmware in the loop, the mesh, checkpoint, profiling ----------------
     pair_main.update(phase12_runtime(dev, params, args, soa0, action, k_ms))
 
-    # ---------------- 13. result ----------------
+    # ---------------- 13. the examples ----------------
+    phase13_examples()
+
+    # ---------------- 14. result ----------------
     kernels = [{
         "name": f"K1 {KERNEL}", "route": "cuda",
         "source": "gym_pybullet_drones_tpu_torch/csrc/velocity_rollout.cu",
@@ -3437,7 +3847,7 @@ def main():
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
             fail(f"non-finite measurement for {k['name']}")
         if k["device_ms"] is None:
-            print(f"[13] {k['name']}: device_ms null, no torch.profiler trace held its kernels "
+            print(f"[14] {k['name']}: device_ms null, no torch.profiler trace held its kernels "
                   "(not measured)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -3448,4 +3858,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--eval"]:
         sys.exit(checkpoint_eval(sys.argv[2]))
+    if sys.argv[1:2] == ["--example"]:
+        sys.exit(example_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--examples"]:
+        sys.exit(examples_only(sys.argv[2:]))
     sys.exit(main())

@@ -9,8 +9,9 @@ with a leading env axis.
 
 Policy weights come across as flax writes them: ``load_flax_msgpack`` reads a
 ``flax.serialization.to_bytes`` file (``checkpoints/*.msgpack``) with a
-decoder of its own, and ``actor_critic_from_flax`` / ``actor_critic_to_flax``
-map the tree to and from the port's ``ActorCritic`` or ``CnnActorCritic``.
+decoder of its own, ``save_flax_msgpack`` writes one with an encoder of its
+own, and ``actor_critic_from_flax`` / ``actor_critic_to_flax`` map the tree
+to and from the port's ``ActorCritic`` or ``CnnActorCritic``.
 This module imports no JAX, flax or msgpack.
 """
 
@@ -132,9 +133,9 @@ class _Reader:
         if code == _EXT_NDARRAY:
             shape, dtype, raw = payload.read()
             return np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape).copy()
-        if code == _EXT_NPSCALAR:
-            dtype, raw = payload.read()
-            return np.frombuffer(raw, dtype=np.dtype(dtype))[0]
+        if code == _EXT_NPSCALAR:  # packed as a 0-d ndarray
+            shape, dtype, raw = payload.read()
+            return np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape)[()]
         raise ValueError(f"unsupported msgpack ext type {code}")
 
     def read(self):
@@ -189,6 +190,110 @@ def load_flax_msgpack(path) -> dict:
     if reader.pos != len(reader.data):
         raise ValueError(f"{path}: trailing bytes after the msgpack object")
     return tree
+
+
+def _pack_length(out: bytearray, n: int, fix: int, fix_max: int, wide: tuple):
+    """A msgpack length header: the fix form below ``fix_max``, else the
+    first of ``wide``'s (first byte, length format) pairs that holds ``n``."""
+    if n < fix_max:
+        out.append(fix | n)
+        return
+    for first, fmt in wide:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            out.append(first)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} is too large")
+
+
+def _pack_int(out: bytearray, v: int):
+    """An int in msgpack's smallest form: a fixint, else the first unsigned
+    (v >= 0) or signed width that holds it."""
+    if -32 <= v < 0x80:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+        return
+    forms = (((0xcc, ">B"), (0xcd, ">H"), (0xce, ">I"), (0xcf, ">Q")) if v >= 0 else
+             ((0xd0, ">b"), (0xd1, ">h"), (0xd2, ">i"), (0xd3, ">q")))
+    for first, fmt in forms:
+        try:
+            packed = struct.pack(fmt, v)
+        except struct.error:  # too wide for this form
+            continue
+        out.append(first)
+        out += packed
+        return
+    raise ValueError(f"integer {v} does not fit msgpack")
+
+
+def _pack_ext(out: bytearray, code: int, payload: bytes):
+    fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    if len(payload) in fixext:
+        out.append(fixext[len(payload)])
+    else:
+        _pack_length(out, len(payload), 0, 0, ((0xc7, ">B"), (0xc8, ">H"), (0xc9, ">I")))
+    out += struct.pack(">b", code)
+    out += payload
+
+
+def _ndarray_payload(a: np.ndarray) -> bytes:
+    """flax's ndarray encoding: the msgpack array (shape, dtype name, C bytes)."""
+    out = bytearray([0x93])
+    _pack_length(out, a.ndim, 0x90, 16, ((0xdc, ">H"), (0xdd, ">I")))
+    for d in a.shape:
+        _pack_int(out, int(d))
+    _pack(out, a.dtype.name)
+    raw = a.tobytes("C")
+    _pack_length(out, len(raw), 0, 0, ((0xc4, ">B"), (0xc5, ">H"), (0xc6, ">I")))
+    out += raw
+    return bytes(out)
+
+
+def _pack(out: bytearray, x):
+    """Append the msgpack form of ``x`` as ``flax.serialization.msgpack_serialize``
+    writes it: str-keyed maps, ndarrays and numpy scalars as flax's ext types,
+    and Python scalars; a tensor as its host ndarray."""
+    if isinstance(x, dict):
+        _pack_length(out, len(x), 0x80, 16, ((0xde, ">H"), (0xdf, ">I")))
+        for k, v in x.items():
+            if not isinstance(k, str):
+                raise TypeError(f"map key {k!r} is not a str")
+            _pack(out, k)
+            _pack(out, v)
+    elif isinstance(x, np.ndarray):
+        if x.dtype.hasobject or x.dtype.isalignedstruct:
+            raise TypeError(f"cannot serialize an ndarray of dtype {x.dtype}")
+        _pack_ext(out, _EXT_NDARRAY, _ndarray_payload(x))
+    elif isinstance(x, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _ndarray_payload(np.asarray(x)))
+    elif isinstance(x, torch.Tensor):
+        _pack(out, _np(x))
+    elif x is None:
+        out.append(0xc0)
+    elif isinstance(x, bool):
+        out.append(0xc3 if x else 0xc2)
+    elif isinstance(x, int):
+        _pack_int(out, x)
+    elif isinstance(x, float):
+        out.append(0xcb)
+        out += struct.pack(">d", x)
+    elif isinstance(x, str):
+        raw = x.encode()
+        _pack_length(out, len(raw), 0xa0, 32, ((0xd9, ">B"), (0xda, ">H"), (0xdb, ">I")))
+        out += raw
+    else:
+        raise TypeError(f"cannot serialize {type(x).__name__} as flax msgpack")
+
+
+def save_flax_msgpack(tree: dict, path) -> str:
+    """Write ``tree`` (nested str-keyed dicts of numpy arrays, numpy scalars
+    and Python scalars; tensors are copied to the host) byte for byte as
+    ``flax.serialization.to_bytes`` writes it, so flax's ``from_bytes`` and
+    ``load_flax_msgpack`` read it back. Returns ``path``."""
+    out = bytearray()
+    _pack(out, tree)
+    with open(path, "wb") as fh:
+        fh.write(out)
+    return path
 
 
 def _dense_layers(net):

@@ -1,6 +1,7 @@
 """The port's package surface against the JAX package's: each subpackage
-exports the JAX one's public names, every submodule imports cleanly in a
-fresh interpreter, and the port never imports JAX or the JAX package."""
+exports the JAX one's public names, every file of the JAX package has its
+counterpart in the port, every submodule imports cleanly in a fresh
+interpreter, and the port never imports JAX or the JAX package."""
 
 import ast
 import importlib
@@ -19,12 +20,25 @@ import gym_pybullet_drones_tpu_torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.dirname(gym_pybullet_drones_tpu_torch.__file__)
 
-SUBPACKAGES = ("", "bridges", "compat", "control", "core", "envs", "ops", "render", "rl",
-               "runtime", "utils")
+SUBPACKAGES = ("", "assets", "bridges", "compat", "control", "core", "envs", "examples", "ops",
+               "render", "rl", "runtime", "utils")
 # Names with no counterpart in the port: the Pallas maker of K2 (the port's is
 # ops/downwash_pairs.make_downwash) and tpu_math, which exists only because
 # Mosaic lacks inverse trigonometry.
 PALLAS_ONLY = {"ops": {"make_downwash_pallas", "tpu_math"}}
+# The JAX package's files whose port has another name: the Pallas kernels'
+# modules map to the modules of their hand-written CUDA kernels, and
+# tpu_math.py has none.
+RENAMED = {
+    "ops/velocity_pallas.py": "ops/velocity_rollout.py",  # K1
+    "ops/downwash_pallas.py": "ops/downwash_pairs.py",  # K2, K3
+    "ops/collide_pallas.py": "ops/collide_pairs.py",  # K4
+    "ops/interact_pallas.py": "ops/interact_pairs.py",  # K5, K6
+}
+NOT_PORTED = {
+    "ops/tpu_math.py": "inverse trigonometry written out for Mosaic, which lacks it; "
+                       "PyTorch and CUDA have atan2 and asin",
+}
 # Names a subpackage loads on first access (envs/__init__.py's __getattr__).
 LAZY = {"envs": ("CFAviary", "BetaAviary")}
 
@@ -49,6 +63,28 @@ def test_subpackage_exports_the_jax_names(sub):
         assert callable(jx) == callable(tx), name
     for name in LAZY.get(sub, ()):
         assert getattr(tmod, name).__name__ == getattr(jmod, name).__name__ == name
+
+
+def _files(root):
+    """The package's files relative to ``root``: sources and assets, not the
+    native libraries built at first use."""
+    out = set()
+    for d, dirs, fs in os.walk(root):
+        dirs[:] = [x for x in dirs if x not in ("__pycache__", "_build")]
+        out |= {os.path.relpath(os.path.join(d, f), root) for f in fs if not f.endswith(".so")}
+    return out
+
+
+def test_every_jax_file_has_a_port():
+    """Each file of the JAX package has a same-named file in the port, but for
+    the explicit maps above (whose entries must name real files)."""
+    jax_files = _files(os.path.dirname(gym_pybullet_drones_tpu.__file__))
+    port_files = _files(PORT)
+    assert set(RENAMED) | set(NOT_PORTED) <= jax_files
+    assert set(RENAMED.values()) <= port_files
+    missing = sorted(f for f in jax_files - set(NOT_PORTED) if RENAMED.get(f, f) not in port_files)
+    assert not missing, missing
+    assert len(jax_files) > 70
 
 
 def test_runtime_rollout_is_the_function():
