@@ -134,11 +134,18 @@ Phases, one or more lines each:
      version on the card at the CPU tests' render limits (seg equal on 99.9 %
      of the pixels; where seg agrees rgba within 1, depth within 1e-6), on
      E = 64 one-drone envs facing the RL landmarks, E = 32 two-drone envs (the
-     mesh proxy), one 12-drone world (the X-frame) and E = 16 envs in
-     BaseAviary's scene: the differing pixels, K7's ms (events) and device
-     ms, the plain version's ms and kernels, both peak memories, and K7's
-     bound (the plain version's operations on one pixel, counted element by
-     element, over the float32 peak; 12 bytes a pixel over the memory rate);
+     mesh proxy), one 12-drone world (the X-frame), E = 16 envs in
+     BaseAviary's scene and E = 4096 one-drone envs (the KIN PPO width; the
+     plain version 64 worlds at a time): the differing pixels and whether
+     K7 is bit-equal (it must be), K7's ms (events) and device ms, the plain
+     version's ms and kernels, both peak memories, and two bounds over the
+     float32 peak (12 bytes a pixel over the memory rate): the work K7 needs
+     (the camera once a camera, a gate for every object and other drone
+     once a tile, the rays, plane, sky and depth once a pixel, and a
+     primitive's exact test and an object's selection and shading only where
+     the pixel's ray enters its bounding sphere) and the plain version's
+     whole work (its operations on one pixel, counted element by element);
+     ``python3 chip_smoke.py --render`` runs (a) alone;
      (b) scripts/rgb_scratch.py's RGB Hover env (ONE_D_RPM, 240/30 Hz,
      buffer 15, frame_stack 4) through make_batched_step at E = 64 for 30
      control steps, the card against the CPU on 8 of the envs (kinematics at
@@ -224,6 +231,7 @@ import contextlib
 import dataclasses
 import functools
 import importlib.util
+import inspect
 import json
 import math
 import os
@@ -305,6 +313,7 @@ from gym_pybullet_drones_tpu_torch.ops.interact_pairs import (
     make_interact,
     make_interact_masked,
 )
+from gym_pybullet_drones_tpu_torch.ops import render_views as render_ops
 from gym_pybullet_drones_tpu_torch.ops.render_views import KERNEL as RENDER_KERNEL
 from gym_pybullet_drones_tpu_torch.ops.render_views import render_views_cuda
 from gym_pybullet_drones_tpu_torch.ops.swarm_binned import (
@@ -2133,8 +2142,35 @@ class _ElementOps(TorchDispatchMode):
         out = func(*args, **(kwargs or {}))
         name = func.overloadpacket.__name__
         if name in _RENDER_OPS or name == "clamp":
-            self.ops += out.numel() if isinstance(out, torch.Tensor) else 1
+            self.add(out.numel() if isinstance(out, torch.Tensor) else 1)
         return out
+
+    def add(self, n):
+        self.ops += n
+
+
+class _SectionOps(_ElementOps):
+    """Counts as ``_ElementOps`` does, by the part of
+    ``render_drone_views_plain`` that makes each operation: "drones" (the
+    other drones' block), a landmark's index in the scene, or "rest" (the
+    camera, the rays, the plane, the sky and the depth). The parts are the
+    function's own section comments."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = Counter()
+        lines, start = inspect.getsourcelines(camera.render_drone_views_plain)
+        at = lambda mark: start + next(i for i, ln in enumerate(lines) if mark in ln)
+        self.marks = (at("# --- the other drones"), at("# --- landmarks"), at("# --- sky"))
+
+    def add(self, n):
+        f = sys._getframe(2)
+        while f is not None and f.f_code is not camera.render_drone_views_plain.__code__:
+            f = f.f_back
+        line = -1 if f is None else f.f_lineno
+        key = ("drones" if self.marks[0] <= line < self.marks[1] else
+               f.f_locals["k"] if self.marks[1] <= line < self.marks[2] else "rest")
+        self.ops[key] += n
 
 
 def render_ops_per_pixel(pos, quat, arm, cfg):
@@ -2152,10 +2188,12 @@ def render_ops_per_pixel(pos, quat, arm, cfg):
         return c.ops
 
     n, eye = pos.shape[1], torch.eye(3)[None]
+    cone = (torch.zeros(3), torch.eye(3)[[0, 1, 2, 0]], torch.tensor(False))
     tests = dict(ops_triangle=count(lambda: ray_tris(one, ray, one, ray, two)),
                  ops_slab=count(lambda: camera._ray_aabb(one, ray, ray)),
                  ops_sphere=count(lambda: camera._ray_sphere(one, ray, one, 0.25)),
-                 ops_frame=2 * count(lambda: camera._rt_apply(eye, one)))
+                 ops_frame=2 * count(lambda: camera._rt_apply(eye, one)),
+                 ops_gate=count(lambda: render_ops._gate(cone, ray[0], torch.tensor(0.1))))
     mesh = camera.use_mesh_proxy(cfg, n)
     own = tests["ops_frame"] + (68 * tests["ops_triangle"] if mesh
                                 else 2 * tests["ops_slab"] + tests["ops_sphere"])
@@ -2165,6 +2203,155 @@ def render_ops_per_pixel(pos, quat, arm, cfg):
                  landmark_triangles=sum(len(o["mesh"][0]) for o in camera._scene_objects(
                      cfg.scene) if o["kind"] == "mesh") if cfg.with_landmarks else 0)
     return total - own, tests
+
+
+def _unpadded(rows):
+    """(T, 4) float64 spheres of (T, 12) triangle rows: centroid, distance to
+    the farthest vertex (K7's spheres before their padding)."""
+    verts = render_ops._row_vertices(rows)
+    centre = verts.mean(1)
+    reach = np.linalg.norm(verts - centre[:, None], axis=-1).max(1)
+    return np.concatenate([centre, reach[:, None]], 1)
+
+
+def _entered(o, d, c, r):
+    """Whether the rays (o, d unit) enter the spheres (c, r) ahead of o."""
+    oc = c - o
+    b = (d * oc).sum(-1)
+    dist2 = (oc * oc).sum(-1) - b * b
+    return (dist2 <= r * r) & (b + torch.sqrt(torch.clamp(r * r - dist2, min=0.0)) > 0)
+
+
+def _pixel_rays(pos, quat, arm, cam, cfg):
+    """Each pixel's eye and unit ray (B, C, H, W, 3), float64, on ``pos``'s device."""
+    pos, quat, arm = pos.double(), quat.double(), arm.double()
+    sel = torch.as_tensor(cam, device=pos.device)
+    R = quat_to_matrix(quat)[:, sel]
+    eye = pos[:, sel].clone()
+    eye[..., 2] += arm[:, None]
+    fwd = R[..., :, 0] / R[..., :, 0].norm(dim=-1, keepdim=True)
+    right = torch.linalg.cross(fwd, torch.tensor([0.0, 0.0, 1.0], dtype=pos.dtype,
+                                                 device=pos.device).expand(fwd.shape))
+    right = right / right.norm(dim=-1, keepdim=True).clamp(min=1e-6)
+    up = torch.linalg.cross(right, fwd)
+    th = camera.tan_half_fov(cfg)
+    xs = ((torch.arange(cfg.width, device=pos.device) + 0.5) / cfg.width * 2 - 1) * th * cfg.aspect
+    ys = (1 - (torch.arange(cfg.height, device=pos.device) + 0.5) / cfg.height * 2) * th
+    bc = (slice(None), slice(None), None, None, slice(None))
+    d = fwd[bc] + xs[None, :, None] * right[bc] + ys[:, None, None] * up[bc]
+    return eye[bc].expand(d.shape), d / d.norm(dim=-1, keepdim=True)
+
+
+def render_plain_parts(pos, quat, arm, cfg):
+    """(operations a camera, operations a pixel by part) of the plain version
+    on camera 0 of the first world at the case's size: each part
+    (``_SectionOps``) is counted at 1 x 1, 2 x 1, 1 x 2 and 2 x 2 pixels and
+    read as a + b W + c H + p W H; p is its work a pixel, the rest its work a
+    camera (the world's rotations included)."""
+    pos1, quat1, arm1 = pos[:1].cpu(), quat[:1].cpu(), arm[:1].cpu()
+    T = {}
+    for w, h in ((1, 1), (2, 1), (1, 2), (2, 2)):
+        with _SectionOps() as c:
+            camera.render_drone_views_plain(pos1, quat1, arm1, [0],
+                                            dataclasses.replace(cfg, width=w, height=h))
+        T[w, h] = c.ops
+    per_camera, per_pixel = 0, {}
+    for k in set().union(*T.values()):
+        p = T[2, 2][k] - T[2, 1][k] - T[1, 2][k] + T[1, 1][k]
+        b, c = T[2, 1][k] - T[1, 1][k] - p, T[1, 2][k] - T[1, 1][k] - p
+        per_camera += T[1, 1][k] - b - c - p + b * cfg.width + c * cfg.height
+        per_pixel[k] = p
+    return per_camera, per_pixel
+
+
+def render_needed_ops(pos, quat, arm, cfg, tests, chunk=64):
+    """(the operations K7's work needs on this case, their pieces). Once a
+    camera: the plain version's camera work (``render_plain_parts``). Once a
+    K7 tile (``TILE_W`` x ``TILE_H`` pixels): a gate (``ops_gate``) for every
+    landmark object and other drone. Every pixel: the rays, the plane, the
+    sky and the depth. Only where the pixel's own ray enters an unpadded
+    bounding sphere: a landmark's selection and shading and its exact test
+    (a mesh's triangles each by its own sphere); a drone's frame and its cf2
+    triangles (mesh proxy) or its bars and body (X-frame); and, on a pixel
+    that enters any other drone, the drone block's selection and shading.
+    Counted over every pixel, ``chunk`` worlds at a time, in float64 on the
+    card."""
+    B, N = pos.shape[:2]
+    cam = list(range(N))
+    cf2, objs, tris = render_ops.scene_tables(cfg.scene, cfg.with_landmarks, cfg.frame_angle_deg)
+    dev = pos.device
+    t_sph = torch.as_tensor(_unpadded(tris), device=dev)
+    c_sph = torch.as_tensor(_unpadded(cf2), device=dev)
+    r_mesh = float(np.linalg.norm(render_ops._row_vertices(cf2), axis=-1).max())
+    kinds = [int(k) for k in objs[:, 0]]
+    per_camera, per_pixel = render_plain_parts(pos, quat, arm, cfg)
+    mesh = camera.use_mesh_proxy(cfg, N)
+    drone_full = tests["ops_frame"] + (68 * tests["ops_triangle"] if mesh
+                                       else 2 * tests["ops_slab"] + tests["ops_sphere"])
+    reach, test, select = [], [], []
+    for m, kind in enumerate(kinds):
+        if kind == 2:
+            rows = tris[int(objs[m, 12]):int(objs[m, 12] + objs[m, 13])]
+            verts = render_ops._row_vertices(rows) - objs[m, 1:4]
+            reach.append(float(np.linalg.norm(verts, axis=-1).max()))
+            test.append(len(rows) * tests["ops_triangle"])
+        else:
+            reach.append(float(np.linalg.norm(objs[m, 4:7])) if kind == 0 else float(objs[m, 7]))
+            test.append(tests["ops_slab"] if kind == 0 else tests["ops_sphere"])
+        select.append(per_pixel[m] - test[m])
+    drone_select = per_pixel["drones"] - N * drone_full
+    entered = Counter()
+    for b0 in range(0, B, chunk):
+        sl = slice(b0, b0 + chunk)
+        o, d = _pixel_rays(pos[sl], quat[sl], arm[sl], cam, cfg)
+        for m, kind in enumerate(kinds):
+            c = torch.as_tensor(objs[m, 1:4], dtype=torch.float64, device=dev)
+            r = torch.tensor(reach[m], dtype=torch.float64, device=dev)
+            hits = int(_entered(o, d, c, r).sum())
+            entered["landmark_selections"] += hits * select[m]
+            if kind == 2:
+                rows = slice(int(objs[m, 12]), int(objs[m, 12] + objs[m, 13]))
+                entered["landmark_triangles"] += int(_entered(
+                    o[..., None, :], d[..., None, :], t_sph[rows, :3], t_sph[rows, 3]).sum())
+            else:
+                entered["boxes" if kind == 0 else "spheres"] += hits
+        if N > 1:
+            R = quat_to_matrix(quat[sl].double())
+            if not mesh:
+                ca, sa = camera.frame_rotation(cfg)
+                R = R @ torch.tensor([[ca, -sa, 0.0], [sa, ca, 0.0], [0.0, 0.0, 1.0]],
+                                     dtype=torch.float64, device=dev)
+            L = arm[sl].double()[:, None, None, None, None]
+            P = pos[sl].double()[:, None, None, None]  # (b, 1, 1, 1, N, 3)
+            ocb = torch.einsum("bnki,bchwnk->bchwni", R, o[..., None, :] - P)
+            ddb = torch.einsum("bnki,bchwk->bchwni", R, d)
+            own = (torch.arange(N, device=dev)[None, :] == torch.arange(N, device=dev)[:, None])
+            other = ~own[None, :, None, None, :]  # the camera drone c is drone c
+            zero = torch.zeros(3, dtype=torch.float64, device=dev)
+            r_body = r_mesh if mesh else float(np.linalg.norm(render_ops._BARS_HALF))
+            hit = _entered(ocb, ddb, zero, r_body * L) & other
+            if not mesh:
+                hit |= _entered(o[..., None, :], d[..., None, :], P, 0.75 * L) & other
+                entered["xframe_drones"] += int(hit.sum())
+            else:
+                entered["mesh_drones"] += int(hit.sum())
+                tri_hit = _entered(ocb[..., None, :], ddb[..., None, :],
+                                   c_sph[:, :3] * L[..., None, None], c_sph[:, 3] * L[..., None]
+                                   ) & hit[..., None]
+                entered["drone_triangles"] += int(tri_hit.sum())
+            entered["drone_pixels"] += int(hit.any(-1).sum())
+    cameras = B * N
+    pixels = cameras * cfg.height * cfg.width
+    tiles = cameras * -(-cfg.height // render_ops.TILE_H) * -(-cfg.width // render_ops.TILE_W)
+    ops = (cameras * per_camera + tiles * tests["ops_gate"] * (len(objs) + N - 1)
+           + pixels * per_pixel["rest"] + entered["landmark_selections"]
+           + entered["landmark_triangles"] * tests["ops_triangle"]
+           + entered["boxes"] * tests["ops_slab"] + entered["spheres"] * tests["ops_sphere"]
+           + entered["xframe_drones"] * drone_full + entered["mesh_drones"] * tests["ops_frame"]
+           + entered["drone_triangles"] * tests["ops_triangle"]
+           + entered["drone_pixels"] * drone_select)
+    return ops, dict(camera_ops_a_camera=per_camera, rest_ops_a_pixel=per_pixel["rest"],
+                     tiles=tiles, **entered)
 
 
 def render_case(dev, B, N, seed, spread):
@@ -2203,15 +2390,24 @@ def render_case(dev, B, N, seed, spread):
     return [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in (pos, quat, arm)]
 
 
-def render_gaps(got, want):
+def render_gaps(got, plain, B, chunk=64):
     """(seg-differing pixels, rgba max gap and pixels past 1, depth max gap
-    and pixels past 1e-6, all where seg agrees, pixels)."""
-    same = got[2] == want[2]
-    rgba = (got[0].int() - want[0].int()).abs().amax(-1)[same]
-    dep = (got[1] - want[1]).abs()[same]
-    return dict(seg_differs=int((~same).sum()), rgba_max=int(rgba.max()),
-                rgba_past=int((rgba > RENDER_RGBA_ATOL).sum()), dep_max=float(dep.max()),
-                dep_past=int((dep > RENDER_DEP_ATOL).sum()), pixels=same.numel())
+    and pixels past 1e-6, all where seg agrees, pixels) of K7's outputs
+    ``got`` against ``plain(world slice)``, ``chunk`` worlds at a time."""
+    g = dict(seg_differs=0, rgba_max=0, rgba_past=0, dep_max=0.0, dep_past=0, pixels=0)
+    for b0 in range(0, B, chunk):
+        sl = slice(b0, b0 + chunk)
+        want = plain(sl)
+        same = got[2][sl] == want[2]
+        rgba = (got[0][sl].int() - want[0].int()).abs().amax(-1)[same]
+        dep = (got[1][sl] - want[1]).abs()[same]
+        g["seg_differs"] += int((~same).sum())
+        g["rgba_max"] = max(g["rgba_max"], int(rgba.max()))
+        g["rgba_past"] += int((rgba > RENDER_RGBA_ATOL).sum())
+        g["dep_max"] = max(g["dep_max"], float(dep.max()))
+        g["dep_past"] += int((dep > RENDER_DEP_ATOL).sum())
+        g["pixels"] += same.numel()
+    return g
 
 
 def peak_mib(fn):
@@ -2224,61 +2420,79 @@ def peak_mib(fn):
 
 
 def phase10b_render(dev):
-    """(a): K7 against its plain version on the card, timed; returns K7's
-    record at the PPO shape (E = 64 one-drone envs, "rl") and its largest
-    errors."""
+    """(a): K7 against its plain version on the card, bit for bit, timed,
+    with two bounds: the work K7 needs (``render_needed_ops``) and the plain
+    version's whole work; returns K7's record at the PPO shape (E = 64
+    one-drone envs, "rl"), its largest errors and every case's numbers.
+    (a5) is the KIN PPO width: the plain version's intermediates for 4096
+    cameras do not fit on the card, so it runs 64 worlds at a time."""
     cases = [("(a1) E=64 x 1 drone, rl", 64, 1, 1, {}, "landmarks"),
              ("(a2) E=32 x 2 drones, mesh proxy", 32, 2, 2, {}, "landmarks"),
              ("(a3) one 12-drone world, xframe", 1, 12, 3, {}, "line"),
-             ("(a4) E=16 x 1 drone, base scene", 16, 1, 4, dict(scene="base"), "base")]
-    record, worst = None, dict(seg_share=1.0, rgba_max=0, dep_max=0.0)
+             ("(a4) E=16 x 1 drone, base scene", 16, 1, 4, dict(scene="base"), "base"),
+             ("(a5) E=4096 x 1 drone, rl", 4096, 1, 5, {}, "landmarks")]
+    record, worst, summary = None, dict(seg_share=1.0, rgba_max=0, dep_max=0.0), {}
     for name, B, N, seed, extra, spread in cases:
         cfg = camera.CameraConfig(**extra)
         pos, quat, arm = render_case(dev, B, N, seed, spread)
         cam = list(range(N))
         kernel = lambda: render_views_cuda(pos, quat, arm, cam, cfg)
-        plain = lambda: camera.render_drone_views_plain(pos, quat, arm, cam, cfg)
-        got, want = kernel(), plain()
+        chunk = lambda sl: camera.render_drone_views_plain(pos[sl], quat[sl], arm[sl], cam, cfg)
+        plain = lambda: [chunk(slice(b0, b0 + 64)) for b0 in range(0, B, 64)]
+        got = kernel()
         torch.cuda.synchronize()
-        gaps = render_gaps(got, want)
+        gaps = render_gaps(got, chunk, B)
         share = 1.0 - gaps["seg_differs"] / gaps["pixels"]
+        bit_equal = gaps["seg_differs"] == 0 and gaps["rgba_max"] == 0 and gaps["dep_max"] == 0.0
         ids = sorted(int(i) for i in torch.unique(got[2]))
         k_ms = per_pass_ms(kernel, 20, 5)
         k_dev = device_ms(kernel, 10)
         p_ms = per_pass_ms(plain, 1, 3)
         p_launches = len(traced_kernels(plain, 1)[0])
-        k_mem, p_mem = peak_mib(kernel), peak_mib(plain)
+        k_mem, p_mem = peak_mib(kernel), peak_mib(lambda: chunk(slice(0, 64)))
         per_pixel, tests = render_ops_per_pixel(pos, quat, arm, cfg)
+        needed, parts = render_needed_ops(pos, quat, arm, cfg, tests)
         pixels = gaps["pixels"]
-        flops = per_pixel * pixels
         nbytes = 12 * pixels + (7 * N + 1) * 4 * B
-        bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
-        bound_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES_PER_S \
-            else "bytes"
+        bounds = {}
+        for key, flops in (("needed", needed), ("plain work", per_pixel * pixels)):
+            by_ops = flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES_PER_S
+            bounds[key] = (max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3,
+                           "operations" if by_ops else "bytes", flops)
+        bound, bound_by, _ = bounds["needed"]
         print(f"[10b] {name}: {B * N} cameras, {pixels} pixels, ids {ids}; K7 vs plain: seg "
               f"differs on {gaps['seg_differs']} pixels (share equal {share:.6f}, limit "
               f"{RENDER_SEG_SHARE}); where seg agrees rgba max gap {gaps['rgba_max']} "
               f"({gaps['rgba_past']} pixels past {RENDER_RGBA_ATOL}), depth max gap "
-              f"{gaps['dep_max']:.3g} ({gaps['dep_past']} past {RENDER_DEP_ATOL}); K7 "
-              f"{k_ms:.5f} ms (events, median of 5 x 20), device "
+              f"{gaps['dep_max']:.3g} ({gaps['dep_past']} past {RENDER_DEP_ATOL}); bit-equal "
+              f"{bit_equal}; K7 {k_ms:.5f} ms (events, median of 5 x 20), device "
               f"{'not measured' if k_dev is None else f'{k_dev:.5f} ms'}; plain {p_ms:.3f} ms "
-              f"(events, 3 runs), {p_launches} kernels and memsets; peak memory K7 "
-              f"{k_mem:.2f} MiB, plain {p_mem:.1f} MiB; bound {bound:.5f} ms by {bound_by} "
-              f"({per_pixel} operations a pixel: {json.dumps(tests)}; {flops:.4g} operations, "
-              f"{nbytes} bytes); time/bound {k_ms / bound:.2f}", flush=True)
+              f"(events, 3 runs, {-(-B // 64)} calls of 64 worlds at most), {p_launches} kernels "
+              f"and memsets; peak memory K7 {k_mem:.2f} MiB, plain (64 worlds) {p_mem:.1f} MiB; "
+              f"{nbytes} bytes; tests a pixel {json.dumps(tests)}", flush=True)
+        for key, (b_ms, by, flops) in bounds.items():
+            print(f"[10b] {name}: bound of the {key} {b_ms:.6f} ms by {by} ({flops:.4g} "
+                  f"operations{'; ' + json.dumps(parts) if key == 'needed' else ''}); K7 events / "
+                  f"bound {k_ms / b_ms:.2f}, device / bound "
+                  f"{'not measured' if k_dev is None else f'{k_dev / b_ms:.2f}'}", flush=True)
         if share < RENDER_SEG_SHARE or gaps["rgba_max"] > RENDER_RGBA_ATOL \
                 or gaps["dep_max"] > RENDER_DEP_ATOL:
             fail(f"K7 disagrees with its plain version on {name}: {gaps}")
+        if not bit_equal:
+            fail(f"K7 is not bit-equal to its plain version on {name}: {gaps}")
         if len(ids) < 3:
             fail(f"{name}: the views show too little of the scene ({ids})")
         worst = dict(seg_share=min(worst["seg_share"], share),
                      rgba_max=max(worst["rgba_max"], gaps["rgba_max"]),
                      dep_max=max(worst["dep_max"], gaps["dep_max"]))
+        summary[name[:4]] = dict(ms=k_ms, device_ms=k_dev, bound_ms=bound,
+                                 plain_work_bound_ms=bounds["plain work"][0], bit_equal=bit_equal)
         if record is None:
             record = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, plain_launches=p_launches,
-                          bound_ms=bound, bound_by=bound_by, peak_mib=k_mem,
+                          bound_ms=bound, bound_by=bound_by,
+                          plain_work_bound_ms=bounds["plain work"][0], peak_mib=k_mem,
                           plain_peak_mib=p_mem)
-    return record, worst
+    return record, worst, summary
 
 
 def frames_past(a, b):
@@ -2401,7 +2615,7 @@ def phase10b_pixels(dev):
     torch.backends.cudnn.allow_tf32 = False
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 matmuls are on: the pixel path runs in full float32")
-    record, worst = phase10b_render(dev)
+    record, worst, cases = phase10b_render(dev)
     phase10b_env(dev)
     launches = rgb_ppo_step("(c) nominal")
     rgb_ppo_step("(d) domain_rand m 0.1, kf 0.05", {"m": 0.1, "kf": 0.05})
@@ -2431,7 +2645,7 @@ def phase10b_pixels(dev):
                 proc.wait()
     print(f"[10b] phase 10b: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return dict(record, launches=launches, max_abs_err=worst["dep_max"],
-                rgba_max_gap=worst["rgba_max"], seg_equal_share=worst["seg_share"])
+                rgba_max_gap=worst["rgba_max"], seg_equal_share=worst["seg_share"], cases=cases)
 
 
 # Phase 11: the controllers (control/). Card against CPU at
@@ -3582,6 +3796,24 @@ def examples_only(groups):
 
 
 
+def render_only():
+    """``python3 chip_smoke.py --render``: phase 10b (a) alone, K7 built and
+    its compiler's report printed first."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    print(f"[1] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi_line()}",
+          flush=True)
+    _build.build(RENDER_KERNEL)
+    for line in _build.ptxas_report(RENDER_KERNEL).splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"[2]   {RENDER_KERNEL}: {line.strip()}", flush=True)
+    print(f"[2]   K7 blocks resident per SM: {render_ops.blocks_per_sm()}", flush=True)
+    record, worst, cases = phase10b_render(torch.device("cuda"))
+    print(json.dumps(dict(record, **worst, cases=cases)))
+    return 0
+
+
 def main():
     # ---------------- 1. device ----------------
     if not torch.cuda.is_available():
@@ -3611,6 +3843,8 @@ def main():
         held = {s: _pairs.masked_blocks_per_sm(contact, s) for s in _pairs.MASKED_SPLITS}
         print(f"[2]   {name} blocks (warps) resident per SM by source ranks S: "
               + ", ".join(f"S={s}: {b} ({b * s})" for s, b in held.items()), flush=True)
+    print(f"[2]   K7 blocks of four {render_ops.TILE_W} x {render_ops.TILE_H} warp tiles resident per SM: "
+          f"{render_ops.blocks_per_sm()}", flush=True)
 
     cfg = AviaryConfig(task=TASK_VELOCITY, pyb_freq=240, ctrl_freq=48)
     params_cpu, cp_cpu = build_params(cfg, "cpu"), build_ctrl_params(cfg, "cpu")
@@ -3862,4 +4096,6 @@ if __name__ == "__main__":
         sys.exit(example_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--examples"]:
         sys.exit(examples_only(sys.argv[2:]))
+    if sys.argv[1:2] == ["--render"]:
+        sys.exit(render_only())
     sys.exit(main())

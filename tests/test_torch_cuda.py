@@ -24,6 +24,8 @@ from gym_pybullet_drones_tpu_torch.ops import spatial as tsp
 from gym_pybullet_drones_tpu_torch.ops import velocity_rollout as tro
 from gym_pybullet_drones_tpu_torch.ops import velocity_soa as tsoa
 
+from torch_render_views import VIEWS, with_drones
+
 troll = importlib.import_module("gym_pybullet_drones_tpu_torch.runtime.rollout")
 
 pytestmark = pytest.mark.cuda
@@ -744,6 +746,30 @@ def test_k7_matches_plain_version(cuda, B, N, cfg):
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype and g.device == w.device
     _hold_render(got, want)
+
+
+@pytest.mark.parametrize("scene", ["rl", "base"])
+@pytest.mark.parametrize("proxy", ["mesh", "xframe"])
+@pytest.mark.parametrize("N", [1, 2, 12, 40])
+@pytest.mark.parametrize("view", list(VIEWS))
+def test_k7_equals_plain_version_bit_for_bit_on_edge_views(cuda, view, N, proxy, scene):
+    """K7 culls each tile's scene and walks the rest in order: it gives the
+    plain version's bits on tests/torch_render_views.py's views (cameras
+    inside bounding spheres, grazing rays, a drone 0.2 m ahead, 37 x 23 and
+    1 x 1 images), with 1, 2, 12 or 40 drones (two ballot rounds of drones),
+    both drone proxies and both scenes."""
+    from gym_pybullet_drones_tpu_torch.ops import render_views as trv
+    from gym_pybullet_drones_tpu_torch.render import camera as tcam
+
+    make, extra = VIEWS[view]
+    pos, quat, arm = (x.to(cuda) for x in with_drones(*make(), N, seed=N))
+    cfg = tcam.CameraConfig(**{**extra, "drone_proxy": proxy, "scene": scene})
+    cam = sorted({0, N // 2, N - 1})  # three cameras at most: the plain version's memory
+    got = trv.render_views_cuda(pos, quat, arm, cam, cfg)
+    want = tcam.render_drone_views_plain(pos, quat, arm, cam, cfg)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_k7_is_the_render_entry_on_the_card_and_under_vmap(cuda):

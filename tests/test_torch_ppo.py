@@ -139,26 +139,33 @@ def test_ppo_config_rejects_a_non_divisor():
         tppo.PPOConfig(num_envs=4, n_steps=32, minibatch_size=100).num_minibatches
 
 
-def _train_pair(anchor):
-    """One train step of each package from the same initial params: ONE_D_RPM
-    Hover, E = 4, 32 steps of a 0.5 s episode (truncation and auto-reset
-    occur), det_frac 1 (no noise), one minibatch (the epoch permutation only
-    reorders the rows of a mean), 2 epochs."""
-    jcfg, tcfg = _configs(episode_len_sec=0.5)
+def _train_kw(anchor):
+    """ONE_D_RPM Hover, E = 4, 32 steps of a 0.5 s episode (truncation and
+    auto-reset occur), det_frac 1 (no noise), one minibatch (the epoch
+    permutation only reorders the rows of a mean), 2 epochs."""
     kw = dict(num_envs=4, n_steps=32, minibatch_size=128, n_epochs=2, det_frac=1.0)
     if anchor:
         kw.update(anchor_coef=0.5, target_kl=1e-4, log_std_anneal_to=-1.0,
                   log_std_anneal_updates=4)
-    tcfg_ppo, jcfg_ppo = tppo.PPOConfig(**kw), jppo.PPOConfig(**kw)
+    return kw
+
+
+def _init_pair(anchor):
+    """Each package's runner from the same initial params."""
+    jcfg, tcfg = _configs(episode_len_sec=0.5)
+    tcfg_ppo, jcfg_ppo = tppo.PPOConfig(**_train_kw(anchor)), jppo.PPOConfig(**_train_kw(anchor))
     runner, aux = tppo.ppo_init(tcfg, tcfg_ppo, 0, device="cpu")
     jrunner, jaux = jppo.ppo_init(jcfg, jcfg_ppo, jax.random.key(0))
     jrunner = jrunner.replace(params=_to_jax(runner.params))
-    init = {k: v.copy() for k, v in _flax_leaves(jrunner.params).items()}
-    args, jargs = (), ()
-    if anchor:
-        snap = tppo.ActorCritic(27, 1, (64, 64), 0.0, torch.Generator().manual_seed(9), "cpu")
-        args, jargs = (snap,), (_to_jax(snap),)
-    # The rollout both steps take: mean actions through each batched step.
+    return (tcfg, tcfg_ppo, runner, aux), (jcfg, jcfg_ppo, jrunner, jaux)
+
+
+@pytest.fixture(scope="module")
+def rollout_pair():
+    """The rollout both train steps take, the same with and without anchor
+    (the same initial params, envs and steps): mean actions through each
+    package's batched step, 32 steps; (rewards, dones) of each."""
+    (tcfg, _, runner, aux), (jcfg, _, jrunner, jaux) = _init_pair(False)
     roll = []
     for net, step, state, obs in (
             (runner.params, troll.make_batched_step(tcfg, aux["params_env"], aux["ctrl_params"],
@@ -181,17 +188,28 @@ def _train_pair(anchor):
             rewards.append(np.asarray(out.reward))
             dones.append(np.asarray(out.terminated | out.truncated))
         roll.append((np.stack(rewards), np.stack(dones)))
+    return roll
+
+
+def _train_pair(anchor):
+    """One train step of each package from the same initial params."""
+    (tcfg, tcfg_ppo, runner, aux), (jcfg, jcfg_ppo, jrunner, jaux) = _init_pair(anchor)
+    init = {k: v.copy() for k, v in _flax_leaves(jrunner.params).items()}
+    args, jargs = (), ()
+    if anchor:
+        snap = tppo.ActorCritic(27, 1, (64, 64), 0.0, torch.Generator().manual_seed(9), "cpu")
+        args, jargs = (snap,), (_to_jax(snap),)
     runner, metrics = tppo.make_ppo_train_step(tcfg, tcfg_ppo, aux, anchor=anchor)(
         runner, *args)
     jrunner, jmetrics = jit_reference(jppo.make_ppo_train_step(jcfg, jcfg_ppo, jaux,
                                                                anchor=anchor))(jrunner, *jargs)
-    return runner, metrics, jrunner, jmetrics, roll, init, tcfg_ppo
+    return runner, metrics, jrunner, jmetrics, init, tcfg_ppo
 
 
 @pytest.mark.parametrize("anchor", [False, True], ids=["plain", "anchor_kl_anneal"])
-def test_train_step_equals_jax(anchor):
-    runner, metrics, jrunner, jmetrics, roll, init, cfg = _train_pair(anchor)
-    (rt, dt), (rj, dj) = roll
+def test_train_step_equals_jax(anchor, rollout_pair):
+    runner, metrics, jrunner, jmetrics, init, cfg = _train_pair(anchor)
+    (rt, dt), (rj, dj) = rollout_pair
     assert dt.any() and not dt.all()  # truncation and auto-reset happened
     np.testing.assert_array_equal(dt, dj)
     np.testing.assert_allclose(rt, rj, rtol=0, atol=REWARD_ATOL)
