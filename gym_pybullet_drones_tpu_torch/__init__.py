@@ -23,45 +23,67 @@ registers the shells under ids of their own, ``cuda/ctrl-aviary-v0``,
 package's ids stay its own.
 """
 
-# envs.spec first: control.dsl_pid imports it, and envs/__init__ imports
-# envs.base, which imports control.dsl_pid again.
-from gym_pybullet_drones_tpu_torch.envs.spec import (
-    ActionType,
-    DroneModel,
-    ImageType,
-    ObservationType,
-    Physics,
-)
-from gym_pybullet_drones_tpu_torch.control.dsl_pid import (
-    DSLPIDParams,
-    DSLPIDState,
-    dsl_pid_control,
-    dsl_pid_params,
-    dsl_pid_reset,
-)
-from gym_pybullet_drones_tpu_torch.core.collisions import (
-    ObstacleSet,
-    base_obstacles,
-    rl_obstacles,
-)
-from gym_pybullet_drones_tpu_torch.core.dynamics import KinState, init_kin_state, step_physics
-from gym_pybullet_drones_tpu_torch.core.params import DroneParams, drone_params, from_urdf
-from gym_pybullet_drones_tpu_torch.envs.base import (
-    TASK_CTRL,
-    TASK_HOVER,
-    TASK_MULTIHOVER,
-    TASK_VELOCITY,
-    Aviary,
-    AviaryConfig,
-    AviaryState,
-)
-from gym_pybullet_drones_tpu_torch.ops.velocity_rollout import make_velocity_rollout
-from gym_pybullet_drones_tpu_torch.runtime.rollout import batch_reset, make_batched_step
-from gym_pybullet_drones_tpu_torch.runtime.swarm import (
-    make_big_swarm_physics,
-    make_swarm_physics,
-    select_swarm_backend,
-)
+from gym_pybullet_drones_tpu_torch._spans import setup_span as _setup_span
+
+# The package's whole import is the set-up span "port.import".
+with _setup_span("port.import"):
+    # envs.spec first: control.dsl_pid imports it, and envs/__init__ imports
+    # envs.base, which imports control.dsl_pid again.
+    from gym_pybullet_drones_tpu_torch.envs.spec import (
+        ActionType,
+        DroneModel,
+        ImageType,
+        ObservationType,
+        Physics,
+    )
+    from gym_pybullet_drones_tpu_torch.control.dsl_pid import (
+        DSLPIDParams,
+        DSLPIDState,
+        dsl_pid_control,
+        dsl_pid_params,
+        dsl_pid_reset,
+    )
+    from gym_pybullet_drones_tpu_torch.core.collisions import (
+        ObstacleSet,
+        base_obstacles,
+        rl_obstacles,
+    )
+    from gym_pybullet_drones_tpu_torch.core.dynamics import KinState, init_kin_state, step_physics
+    from gym_pybullet_drones_tpu_torch.core.params import DroneParams, drone_params, from_urdf
+    from gym_pybullet_drones_tpu_torch.envs.base import (
+        TASK_CTRL,
+        TASK_HOVER,
+        TASK_MULTIHOVER,
+        TASK_VELOCITY,
+        Aviary,
+        AviaryConfig,
+        AviaryState,
+    )
+    from gym_pybullet_drones_tpu_torch.ops.velocity_rollout import make_velocity_rollout
+    from gym_pybullet_drones_tpu_torch.runtime.rollout import batch_reset, make_batched_step
+    from gym_pybullet_drones_tpu_torch.runtime.swarm import (
+        make_big_swarm_physics,
+        make_swarm_physics,
+        select_swarm_backend,
+    )
+
+    # Gymnasium registration under the port's own ids (the JAX package registers
+    # the reference ids, gym_pybullet_drones_tpu/__init__.py:27-54; registering
+    # one again would override it).
+    try:
+        from gymnasium.envs.registration import register as _register
+
+        for _name, _cls, _vec in (("ctrl", "CtrlAviary", "_vec_ctrl"),
+                                  ("velocity", "VelocityAviary", "_vec_velocity"),
+                                  ("hover", "HoverAviary", "_vec_hover"),
+                                  ("multihover", "MultiHoverAviary", "_vec_multihover")):
+            _register(
+                id=f"cuda/{_name}-aviary-v0",
+                entry_point=f"gym_pybullet_drones_tpu_torch.compat.gym:{_cls}",
+                vector_entry_point=f"gym_pybullet_drones_tpu_torch.compat.vector:{_vec}",
+            )
+    except Exception:  # pragma: no cover - gymnasium absent or double registration
+        pass
 
 __all__ = [
     "ActionType", "Aviary", "AviaryConfig", "AviaryState", "DSLPIDParams", "DSLPIDState",
@@ -72,21 +94,3 @@ __all__ = [
     "make_big_swarm_physics", "make_swarm_physics", "make_velocity_rollout", "rl_obstacles",
     "select_swarm_backend", "step_physics",
 ]
-
-# Gymnasium registration under the port's own ids (the JAX package registers
-# the reference ids, gym_pybullet_drones_tpu/__init__.py:27-54; registering
-# one again would override it).
-try:
-    from gymnasium.envs.registration import register as _register
-
-    for _name, _cls, _vec in (("ctrl", "CtrlAviary", "_vec_ctrl"),
-                              ("velocity", "VelocityAviary", "_vec_velocity"),
-                              ("hover", "HoverAviary", "_vec_hover"),
-                              ("multihover", "MultiHoverAviary", "_vec_multihover")):
-        _register(
-            id=f"cuda/{_name}-aviary-v0",
-            entry_point=f"gym_pybullet_drones_tpu_torch.compat.gym:{_cls}",
-            vector_entry_point=f"gym_pybullet_drones_tpu_torch.compat.vector:{_vec}",
-        )
-except Exception:  # pragma: no cover - gymnasium absent or double registration
-    pass

@@ -14,6 +14,8 @@ import re
 import shutil
 import subprocess
 
+from gym_pybullet_drones_tpu_torch import _spans
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -79,14 +81,17 @@ def _paths(name: str):
 
 def build(name: str) -> str:
     """Build ``csrc/<name>.cu`` if it is not built yet and return the path of
-    its shared library; raises with the compiler's output when nvcc fails."""
+    its shared library; raises with the compiler's output when nvcc fails.
+    A build is recorded as the set-up span ``nvcc.<name>``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     src, lib, log = _paths(name)
     if os.path.exists(lib):
         return lib
     tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS[name], "-o", tmp, src], stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
+    nvcc = _nvcc()
+    with _spans.setup_span(f"nvcc.{name}"):
+        proc = subprocess.run([nvcc, *NVCC_FLAGS[name], "-o", tmp, src], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):\n{proc.stdout}")
     with open(log, "w") as fh:

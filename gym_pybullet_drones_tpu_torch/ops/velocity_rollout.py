@@ -20,6 +20,7 @@ from typing import Dict
 
 import torch
 
+from gym_pybullet_drones_tpu_torch import _spans
 from gym_pybullet_drones_tpu_torch._struct import resolve_device
 from gym_pybullet_drones_tpu_torch.ops import _build
 from gym_pybullet_drones_tpu_torch.ops.velocity_soa import (
@@ -29,6 +30,9 @@ from gym_pybullet_drones_tpu_torch.ops.velocity_soa import (
 )
 
 KERNEL = "velocity_rollout"
+# Whether this process has launched K1 (the set-up span ``k1.first_launch``):
+# the span's own, as callers reset ``velocity_rollout_cuda.launches``.
+_first_launch_done = False
 # The lane counts an env can be laid over (csrc/velocity_rollout.cu): no
 # stage of the step has more than four independent operations.
 LANES = (1, 2, 4)
@@ -77,8 +81,11 @@ def _pack_consts(consts, ctrl_dt, pyb_dt, speed_limit):
 
 @functools.cache
 def _library():
-    """K1's C entry point, built at first use and typed once."""
-    fn = ctypes.CDLL(_build.build(KERNEL)).velocity_rollout
+    """K1's C entry point, built at first use and typed once (the set-up span
+    ``k1.load``: hashing the sources, nvcc where no library matches, loading
+    it)."""
+    with _spans.setup_span("k1.load"):
+        fn = ctypes.CDLL(_build.build(KERNEL)).velocity_rollout
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -91,37 +98,44 @@ def velocity_rollout_cuda(consts, ctrl_dt, pyb_dt, n_substeps, speed_limit, num_
     """Launch K1 on CUDA float32 columns; ``velocity_rollout_cuda.launches``
     counts the launches. ``lanes``: the lanes an env is laid over, one of
     ``LANES`` (``choose_lanes(E)`` by default); the result is the same bit
-    for bit whatever it is, so only the tests and timings set it."""
-    cols = [soa[k] for k in SOA_KEYS] + [action[k] for k in ACTION_KEYS]
-    E = cols[0].shape[0] if cols[0].ndim == 1 else -1
-    device = cols[0].device
-    for k, x in zip(SOA_KEYS + ACTION_KEYS, cols):
-        if x.device.type != "cuda" or x.device != device:
-            raise ValueError(f"K1 takes CUDA tensors on one device; {k} is on {x.device}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"K1 computes in float32 only; {k} is {x.dtype}")
-        if x.ndim != 1 or x.shape[0] != E:
-            raise ValueError(f"K1 takes (E,) columns of one length; {k} has shape "
-                             f"{tuple(x.shape)}")
-    if n_substeps < 0 or num_steps < 0:
-        raise ValueError("n_substeps and num_steps must be non-negative")
-    lanes = choose_lanes(E) if lanes is None else lanes
-    if lanes not in LANES:
-        raise ValueError(f"K1 lays an env over one of {LANES} lanes; got {lanes}")
-    packed = torch.stack(cols)  # (30, E), contiguous
-    out = torch.empty((len(SOA_KEYS), E), dtype=torch.float32, device=device)
-    if not (packed.is_contiguous() and out.is_contiguous()):
-        raise ValueError("K1 needs contiguous (30, E) input and (26, E) output")
-    fn = _library()
-    host = _pack_consts(consts, ctrl_dt, pyb_dt, speed_limit)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(packed.data_ptr(), out.data_ptr(), E, ctypes.addressof(host), len(host),
-                n_substeps, num_steps, lanes, stream)
-    if rc != 0:
-        raise RuntimeError(f"K1 launch failed: cudaError {rc}")
-    velocity_rollout_cuda.launches += 1
-    return {k: out[i] for i, k in enumerate(SOA_KEYS)}
+    for bit whatever it is, so only the tests and timings set it. The call's
+    host time is the span ``k1.call``; the process's first launch, where CUDA
+    loads K1's module, the set-up span ``k1.first_launch``."""
+    global _first_launch_done
+    with _spans.span("k1.call"):
+        cols = [soa[k] for k in SOA_KEYS] + [action[k] for k in ACTION_KEYS]
+        E = cols[0].shape[0] if cols[0].ndim == 1 else -1
+        device = cols[0].device
+        for k, x in zip(SOA_KEYS + ACTION_KEYS, cols):
+            if x.device.type != "cuda" or x.device != device:
+                raise ValueError(f"K1 takes CUDA tensors on one device; {k} is on {x.device}")
+            if x.dtype != torch.float32:
+                raise TypeError(f"K1 computes in float32 only; {k} is {x.dtype}")
+            if x.ndim != 1 or x.shape[0] != E:
+                raise ValueError(f"K1 takes (E,) columns of one length; {k} has shape "
+                                 f"{tuple(x.shape)}")
+        if n_substeps < 0 or num_steps < 0:
+            raise ValueError("n_substeps and num_steps must be non-negative")
+        lanes = choose_lanes(E) if lanes is None else lanes
+        if lanes not in LANES:
+            raise ValueError(f"K1 lays an env over one of {LANES} lanes; got {lanes}")
+        packed = torch.stack(cols)  # (30, E), contiguous
+        out = torch.empty((len(SOA_KEYS), E), dtype=torch.float32, device=device)
+        if not (packed.is_contiguous() and out.is_contiguous()):
+            raise ValueError("K1 needs contiguous (30, E) input and (26, E) output")
+        fn = _library()
+        host = _pack_consts(consts, ctrl_dt, pyb_dt, speed_limit)
+        first = not _first_launch_done
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            with _spans.setup_span("k1.first_launch") if first else _spans.OFF:
+                rc = fn(packed.data_ptr(), out.data_ptr(), E, ctypes.addressof(host), len(host),
+                        n_substeps, num_steps, lanes, stream)
+        _first_launch_done = True
+        if rc != 0:
+            raise RuntimeError(f"K1 launch failed: cudaError {rc}")
+        velocity_rollout_cuda.launches += 1
+        return {k: out[i] for i, k in enumerate(SOA_KEYS)}
 
 
 velocity_rollout_cuda.launches = 0

@@ -3,8 +3,11 @@
 The reference's only instrumentation is render()'s wall-clock and sim-time
 printout (BaseAviary.py:404-406) and sleep-based pacing (utils.py:10-29).
 Here: a ``torch.profiler`` trace written as a Chrome trace, items/s of a
-state-threading step fenced on the device it ran on, and a realtime-factor
-report with the reference's semantics.
+state-threading step fenced on the device it ran on, a realtime-factor
+report with the reference's semantics, and the port's spans.
+
+The spans live in the leaf module ``_spans.py`` and are exported here:
+``span``, ``setup_span``, ``spans``, ``setup_spans`` and ``OFF``.
 """
 
 import contextlib
@@ -13,6 +16,14 @@ import time
 from typing import Callable
 
 import torch
+
+from gym_pybullet_drones_tpu_torch._spans import (  # noqa: F401
+    OFF,
+    setup_span,
+    setup_spans,
+    span,
+    spans,
+)
 
 
 @contextlib.contextmanager

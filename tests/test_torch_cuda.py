@@ -10,6 +10,8 @@ Elsewhere every test skips (the card is looked for inside a fixture, so all
 pytest workers collect the same tests)."""
 
 import importlib
+import json
+import time
 
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from gym_pybullet_drones_tpu_torch.ops import interact_pairs as tia
 from gym_pybullet_drones_tpu_torch.ops import spatial as tsp
 from gym_pybullet_drones_tpu_torch.ops import velocity_rollout as tro
 from gym_pybullet_drones_tpu_torch.ops import velocity_soa as tsoa
+from gym_pybullet_drones_tpu_torch.runtime import profiling
 
 from torch_render_views import VIEWS, with_drones
 
@@ -91,6 +94,50 @@ def test_k1_counts_its_launches(cuda):
     rollout(soa, act)
     rollout(soa, act)
     assert tro.velocity_rollout_cuda.launches == before + 2
+
+
+def test_k1_call_span_and_its_kernel_share_the_trace_clock(cuda, tmp_path):
+    """One K1 call under torch.profiler with CUDA activity alone, as the
+    benchmark's traced part records: the launcher records its ``k1.call``
+    span, and the kernel starts inside ``[t0, t1 + 1 ms]`` of it on the
+    Chrome trace's clock. The load and the first launch are set-up spans,
+    each once a process."""
+    args, soa, act = _case(cuda, 4096)
+    tro.velocity_rollout_cuda(*args, 48, soa, act)
+    torch.cuda.synchronize()
+    setup = [s[0] for s in profiling.setup_spans()]
+    assert setup.count("k1.load") == 1 and setup.count("k1.first_launch") == 1
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        start = time.time_ns()
+        tro.velocity_rollout_cuda(*args, 48, soa, act)
+        torch.cuda.synchronize()
+        end = time.time_ns()
+    calls = [s for s in profiling.spans(start, end) if s[0] == "k1.call"]
+    assert len(calls) == 1
+    _, t0, t1 = calls[0]
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    base = trace.get("baseTimeNanoseconds", 0)
+    starts = [base + 1e3 * e["ts"] for e in trace["traceEvents"]
+              if e.get("cat") == "kernel" and tro.KERNEL in e["name"]]
+    assert len(starts) == 1
+    assert t0 <= starts[0] <= t1 + 1e6, (starts[0] - t0, t1 - t0)
+    assert [s[0] for s in profiling.setup_spans()] == setup
+
+
+def test_k1_first_launch_is_a_setup_span_once_though_the_counter_is_reset(cuda):
+    """``k1.first_launch`` marks the process's first launch whatever callers
+    do with ``velocity_rollout_cuda.launches``."""
+    args, soa, act = _case(cuda, 64)
+    tro.velocity_rollout_cuda(*args, 4, soa, act)
+    first = [s for s in profiling.setup_spans() if s[0] == "k1.first_launch"]
+    assert len(first) == 1
+    tro.velocity_rollout_cuda.launches = 0
+    tro.velocity_rollout_cuda(*args, 4, soa, act)
+    torch.cuda.synchronize()
+    assert tro.velocity_rollout_cuda.launches == 1
+    assert [s for s in profiling.setup_spans() if s[0] == "k1.first_launch"] == first
 
 
 def test_k1_rejects_what_it_does_not_take(cuda):
