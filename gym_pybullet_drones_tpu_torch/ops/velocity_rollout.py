@@ -12,6 +12,10 @@ package's layout at this boundary: a dict of (E,) float32 columns keyed by
   velocity_pallas.py). A failed build or launch raises.
 * On CPU tensors it runs the plain version, a Python loop of
   ``velocity_step_soa``; the tests and ``chip_smoke.py`` hold K1 against it.
+
+``velocity_rollout_counts`` launches K1's counting build, which the main path
+never runs, and returns how often K1's step took a zero operand inline and how
+often it fell back to the library's division and root (``RN_COUNTS``).
 """
 
 import ctypes
@@ -40,6 +44,12 @@ LANES = (1, 2, 4)
 # H100's 132 x 4 schedulers (a constant, so that the choice never depends on
 # the card; the result does not depend on it either).
 _K1_WARPS = 1024
+# What K1's counting build counts (csrc/velocity_rollout.cu, in this order),
+# over all envs and control steps: divisions with a zero numerator, roots of a
+# zero and atan2 of a zero y over a positive x, which its fast step takes
+# inline (csrc/rn_math.cuh); divisions and roots outside the fast step's
+# classes; and env-steps recomputed with the library's division and root.
+RN_COUNTS = ("zero_numerator", "zero_radicand", "zero_atan2", "fallback", "replayed")
 
 
 def choose_lanes(E: int) -> int:
@@ -81,15 +91,47 @@ def _pack_consts(consts, ctrl_dt, pyb_dt, speed_limit):
 
 @functools.cache
 def _library():
-    """K1's C entry point, built at first use and typed once (the set-up span
-    ``k1.load``: hashing the sources, nvcc where no library matches, loading
-    it)."""
+    """K1's two C entry points, ``velocity_rollout`` and the counting build's
+    ``velocity_rollout_counted``, built at first use and typed once (the
+    set-up span ``k1.load``: hashing the sources, nvcc where no library
+    matches, loading it)."""
     with _spans.setup_span("k1.load"):
-        fn = ctypes.CDLL(_build.build(KERNEL)).velocity_rollout
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+        lib = ctypes.CDLL(_build.build(KERNEL))
+    head = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fns = {}
+    for name, tail in (("velocity_rollout", []), ("velocity_rollout_counted", [ctypes.c_void_p])):
+        fn = getattr(lib, name)
+        fn.argtypes = head + tail + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def _operands(soa, action, n_substeps, num_steps, lanes):
+    """K1's checked operands: the packed (30, E) input, an empty (26, E)
+    output, E and the lanes an env is laid over."""
+    cols = [soa[k] for k in SOA_KEYS] + [action[k] for k in ACTION_KEYS]
+    E = cols[0].shape[0] if cols[0].ndim == 1 else -1
+    device = cols[0].device
+    for k, x in zip(SOA_KEYS + ACTION_KEYS, cols):
+        if x.device.type != "cuda" or x.device != device:
+            raise ValueError(f"K1 takes CUDA tensors on one device; {k} is on {x.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"K1 computes in float32 only; {k} is {x.dtype}")
+        if x.ndim != 1 or x.shape[0] != E:
+            raise ValueError(f"K1 takes (E,) columns of one length; {k} has shape "
+                             f"{tuple(x.shape)}")
+    if n_substeps < 0 or num_steps < 0:
+        raise ValueError("n_substeps and num_steps must be non-negative")
+    lanes = choose_lanes(E) if lanes is None else lanes
+    if lanes not in LANES:
+        raise ValueError(f"K1 lays an env over one of {LANES} lanes; got {lanes}")
+    packed = torch.stack(cols)  # (30, E), contiguous
+    out = torch.empty((len(SOA_KEYS), E), dtype=torch.float32, device=device)
+    if not (packed.is_contiguous() and out.is_contiguous()):
+        raise ValueError("K1 needs contiguous (30, E) input and (26, E) output")
+    return packed, out, E, lanes
 
 
 def velocity_rollout_cuda(consts, ctrl_dt, pyb_dt, n_substeps, speed_limit, num_steps,
@@ -103,27 +145,9 @@ def velocity_rollout_cuda(consts, ctrl_dt, pyb_dt, n_substeps, speed_limit, num_
     loads K1's module, the set-up span ``k1.first_launch``."""
     global _first_launch_done
     with _spans.span("k1.call"):
-        cols = [soa[k] for k in SOA_KEYS] + [action[k] for k in ACTION_KEYS]
-        E = cols[0].shape[0] if cols[0].ndim == 1 else -1
-        device = cols[0].device
-        for k, x in zip(SOA_KEYS + ACTION_KEYS, cols):
-            if x.device.type != "cuda" or x.device != device:
-                raise ValueError(f"K1 takes CUDA tensors on one device; {k} is on {x.device}")
-            if x.dtype != torch.float32:
-                raise TypeError(f"K1 computes in float32 only; {k} is {x.dtype}")
-            if x.ndim != 1 or x.shape[0] != E:
-                raise ValueError(f"K1 takes (E,) columns of one length; {k} has shape "
-                                 f"{tuple(x.shape)}")
-        if n_substeps < 0 or num_steps < 0:
-            raise ValueError("n_substeps and num_steps must be non-negative")
-        lanes = choose_lanes(E) if lanes is None else lanes
-        if lanes not in LANES:
-            raise ValueError(f"K1 lays an env over one of {LANES} lanes; got {lanes}")
-        packed = torch.stack(cols)  # (30, E), contiguous
-        out = torch.empty((len(SOA_KEYS), E), dtype=torch.float32, device=device)
-        if not (packed.is_contiguous() and out.is_contiguous()):
-            raise ValueError("K1 needs contiguous (30, E) input and (26, E) output")
-        fn = _library()
+        packed, out, E, lanes = _operands(soa, action, n_substeps, num_steps, lanes)
+        device = out.device
+        fn = _library()["velocity_rollout"]
         host = _pack_consts(consts, ctrl_dt, pyb_dt, speed_limit)
         first = not _first_launch_done
         with torch.cuda.device(device):
@@ -139,6 +163,27 @@ def velocity_rollout_cuda(consts, ctrl_dt, pyb_dt, n_substeps, speed_limit, num_
 
 
 velocity_rollout_cuda.launches = 0
+
+
+def velocity_rollout_counts(consts, ctrl_dt, pyb_dt, n_substeps, speed_limit, num_steps,
+                            soa: Dict[str, torch.Tensor], action: Dict[str, torch.Tensor],
+                            lanes=None) -> Dict[str, int]:
+    """Run K1's counting build over the same operands as
+    ``velocity_rollout_cuda`` and return its counts, ``RN_COUNTS``, over all
+    envs and steps (each operation of an env once, whatever ``lanes``; a
+    recomputed step's operations as its first attempt met them). For tests
+    and scripts: the main path launches the build without the counter."""
+    packed, out, E, lanes = _operands(soa, action, n_substeps, num_steps, lanes)
+    counts = torch.zeros(len(RN_COUNTS), dtype=torch.int64, device=out.device)
+    host = _pack_consts(consts, ctrl_dt, pyb_dt, speed_limit)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = _library()["velocity_rollout_counted"](
+            packed.data_ptr(), out.data_ptr(), E, ctypes.addressof(host), len(host), n_substeps,
+            num_steps, lanes, counts.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"K1 (counting build) launch failed: cudaError {rc}")
+    return dict(zip(RN_COUNTS, counts.tolist()))
 
 
 def make_velocity_rollout(consts, ctrl_dt, pyb_dt, n_substeps, speed_limit, num_steps: int,

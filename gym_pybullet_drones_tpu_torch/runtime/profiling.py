@@ -7,7 +7,10 @@ state-threading step fenced on the device it ran on, a realtime-factor
 report with the reference's semantics, and the port's spans.
 
 The spans live in the leaf module ``_spans.py`` and are exported here:
-``span``, ``setup_span``, ``spans``, ``setup_spans`` and ``OFF``.
+``span``, ``setup_span``, ``spans``, ``setup_spans`` and ``OFF``; beside
+them ``velocity_rollout_counts``, the counts of K1's counting build: zero
+operands taken inline and steps recomputed with the library's division and
+root (``ops/velocity_rollout.py``).
 """
 
 import contextlib
@@ -23,6 +26,10 @@ from gym_pybullet_drones_tpu_torch._spans import (  # noqa: F401
     setup_spans,
     span,
     spans,
+)
+from gym_pybullet_drones_tpu_torch.ops.velocity_rollout import (  # noqa: F401
+    RN_COUNTS,
+    velocity_rollout_counts,
 )
 
 

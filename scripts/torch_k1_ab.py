@@ -1,7 +1,7 @@
 """Time kernel K1 (the VelocityAviary rollout) over a range of batch sizes,
 to compare two versions of the PyTorch port on one card.
 
-    PYTHONPATH=<tree> python3 scripts/torch_k1_ab.py LABEL [--fmad]
+    PYTHONPATH=<tree> python3 scripts/torch_k1_ab.py LABEL [--fmad | --commands]
 
 Times the K1 of the ``gym_pybullet_drones_tpu_torch`` package found on the
 path, so run it once per tree, in turns (A, B, B, A), in one run on one
@@ -13,6 +13,13 @@ laid over), also at every lane count it offers, and each of those against
 the launcher's own choice bit for bit at T = 8 (E = 4096). The split: at
 E = 4096, the same launch with no substeps (the DSLPID pipeline alone) and
 with one, at each lane count (or the tree's only layout).
+
+``--commands`` times K1 alone by command instead, at E = 4096 and 65536, T
+= 4800: the turned, compass and hover commands of the benchmark's formation
+traffic (``benchmark/traffic.FormationHeadings``, seed ``SEED``), one command
+for all envs of a call, CUDA events (median of 5 launches after a warm-up).
+Where the tree has K1's counting build (``velocity_rollout_counts``), also its
+counts for one call of each command, as totals and per env and control step.
 
 ``--fmad`` also builds K1 with FMA contraction (``-fmad=true``) and prints
 its largest gap per column to the plain version at T = 8 and T = 240 (E =
@@ -44,6 +51,9 @@ from gym_pybullet_drones_tpu_torch.runtime.rollout import batch_reset
 
 SIZES = (32, 4096, 16384, 65536)
 T_TIME = 4800
+COMMAND_SIZES = (4096, 65536)
+COMMANDS = {"turned": "rotated", "compass": "compass", "hover": "hover"}
+SEED = 2_718_281_828
 
 
 def formation_actions(n, device):
@@ -67,6 +77,30 @@ def event_ms(fn, repeats=5):
     return statistics.median(times)
 
 
+def command_times(cfg, args, params, dev):
+    """ms a K1 call by E and command, and the counting build's counts where
+    the tree has one."""
+    from benchmark.traffic import FormationHeadings
+
+    counted = getattr(vr, "velocity_rollout_counts", None)
+    ms, counts = {}, {}
+    for E in COMMAND_SIZES:
+        soa = soa_from_state(batch_reset(cfg, params, E, device=dev))
+        ms[E], counts[E] = {}, {}
+        for name, kind in COMMANDS.items():
+            act = FormationHeadings({"speed_fraction": 0.25, "commands": [kind]}, E, SEED,
+                                    dev).action(0)
+            ms[E][name] = event_ms(lambda: vr.velocity_rollout_cuda(*args, T_TIME, soa, act))
+            if counted is not None:
+                n = counted(*args, T_TIME, soa, act)
+                counts[E][name] = {"total": n, "per_env_step": {
+                    k: v / (E * T_TIME) for k, v in n.items()}}
+        print(f"E={E}: ms {json.dumps(ms[E])}", flush=True)
+        if counted is not None:
+            print(f"E={E}: counts {json.dumps(counts[E])}", flush=True)
+    return ms, counts
+
+
 def main():
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -80,6 +114,12 @@ def main():
     takes_lanes = "lanes" in inspect.signature(vr.velocity_rollout_cuda).parameters
     out = {"label": sys.argv[1] if len(sys.argv) > 1 else "", "device":
            torch.cuda.get_device_name(0), "smi": smi, "T": T_TIME, "ms": {}}
+    if "--commands" in sys.argv:
+        out["ms"], counts = command_times(cfg, args, params, dev)
+        if counts[COMMAND_SIZES[0]]:
+            out["counts"] = counts
+        print(json.dumps(out))
+        return
     cases = {}
     for E in SIZES:
         soa, act = soa_from_state(batch_reset(cfg, params, E, device=dev)), formation_actions(E, dev)

@@ -81,6 +81,86 @@ def test_k1_equals_plain_version_bit_for_bit_at_every_lane_count(cuda, E, lanes)
         assert torch.equal(got[k], want[k]), k
 
 
+def _command(device, E, kind):
+    """Formation commands of every env: ``hover`` the zero command; ``compass``
+    env i's heading 2 pi i / E in float64, rounded to float32, so that a
+    heading along an axis keeps a component of about 1e-16; ``axis`` the four
+    exact axis headings in turn. 0.25 of the speed limit."""
+    if kind == "hover":
+        cols = np.zeros((4, E))
+    elif kind == "compass":
+        ang = np.arange(E, dtype=np.float64) * (2.0 * np.pi / E)
+        cols = np.stack([np.cos(ang), np.sin(ang), np.zeros(E), np.full(E, 0.25)])
+    else:
+        i = np.arange(E) % 4
+        cols = np.stack([np.array([1.0, 0.0, -1.0, 0.0])[i], np.array([0.0, 1.0, 0.0, -1.0])[i],
+                         np.zeros(E), np.full(E, 0.25)])
+    return {k: torch.as_tensor(cols[i], dtype=torch.float32, device=device)
+            for i, k in enumerate(tsoa.ACTION_KEYS)}
+
+
+_PLAIN_240 = {}
+
+
+@pytest.mark.parametrize("lanes", tro.LANES)
+@pytest.mark.parametrize("kind", ["hover", "compass", "axis"])
+@pytest.mark.parametrize("E", [4096, 1004])
+def test_k1_equals_plain_version_bit_for_bit_on_formation_commands(cuda, E, kind, lanes):
+    """The commands whose zero and tiny operands reached the library's slow
+    division, root and atan2f, which K1's fast step now takes inline
+    (csrc/rn_math.cuh): every bit of the state after T = 240, the sign of a
+    zero and NaN payloads included (torch.equal takes -0 for +0), at every
+    lane count; E = 1004 is ragged at every lane count and keeps the
+    compass's quarter headings."""
+    args, soa, _ = _case(cuda, E)
+    act = _command(cuda, E, kind)
+    if (E, kind) not in _PLAIN_240:
+        _PLAIN_240[E, kind] = tro.velocity_rollout_plain(*args, 240, soa, act)
+    want = _PLAIN_240[E, kind]
+    got = tro.velocity_rollout_cuda(*args, 240, soa, act, lanes=lanes)
+    torch.cuda.synchronize()
+    for k in tsoa.SOA_KEYS:
+        assert torch.equal(got[k].view(torch.int32), want[k].view(torch.int32)), k
+
+
+@pytest.mark.parametrize("kind", ["hover", "compass", "axis"])
+@pytest.mark.parametrize("E", [4096, 1004])
+def test_k1_counting_build_sees_zeros_taken_inline_and_no_fallback(cuda, E, kind):
+    """K1's counting build counts each operation of an env once, whatever
+    the lanes: no operand of these commands lies outside the fast step's
+    classes, so no step is recomputed with the library, and on hover (zero
+    body rates, zero lateral thrust, an identity quaternion) the fast step
+    takes zero numerators, radicands and atan2 arguments every step."""
+    args, soa, _ = _case(cuda, E)
+    act = _command(cuda, E, kind)
+    counts = [profiling.velocity_rollout_counts(*args, 240, soa, act, lanes=L) for L in tro.LANES]
+    assert all(c == counts[0] for c in counts), counts
+    assert set(counts[0]) == set(tro.RN_COUNTS)
+    assert counts[0]["fallback"] == 0 and counts[0]["replayed"] == 0, counts[0]
+    if kind == "hover":
+        for k in ("zero_numerator", "zero_radicand", "zero_atan2"):
+            assert counts[0][k] >= E * 240, counts[0]
+
+
+@pytest.mark.parametrize("lanes", tro.LANES)
+def test_k1_recomputes_a_step_with_an_operand_outside_the_fast_classes(cuda, lanes):
+    """A quaternion component of 1e-35 (below 2^-102, where the library's
+    division check fails) in a few envs: their warps recompute those steps
+    with the library, and the state equals the plain version's bit for bit."""
+    E = 1004
+    args, soa, _ = _case(cuda, E)
+    soa = dict(soa, qx=soa["qx"].clone())
+    soa["qx"][::97] = 1e-35
+    act = _command(cuda, E, "hover")
+    counts = profiling.velocity_rollout_counts(*args, 48, soa, act, lanes=lanes)
+    assert counts["fallback"] > 0 and counts["replayed"] > 0, counts
+    got = tro.velocity_rollout_cuda(*args, 48, soa, act, lanes=lanes)
+    want = tro.velocity_rollout_plain(*args, 48, soa, act)
+    torch.cuda.synchronize()
+    for k in tsoa.SOA_KEYS:
+        assert torch.equal(got[k].view(torch.int32), want[k].view(torch.int32)), k
+
+
 def test_k1_zero_steps_is_identity(cuda):
     args, soa, act = _case(cuda, 64)
     got = tro.velocity_rollout_cuda(*args, 0, soa, act)
