@@ -44,18 +44,27 @@
 // nothing over four (measured slower at every E): the launcher offers 1, 2
 // and 4.
 //
-// Division and root without the library's slow path. The library's `a / b`
-// and `sqrtf` check their operands and send a zero numerator or radicand, or
-// one below about 2^-100, to a long subroutine (a zero numerator: 282 clocks
-// against 73 on a dependent chain); the hover and compass commands meet those
-// every step. And each check holds the next dependent instruction until it
-// resolves. So each control step runs first as a fast step (FastMath): the
-// library's own inline sequences without their checks, exact on their fast
-// classes, zeros included, and atan2f with a zero y over a positive x taken
-// as y (csrc/rn_math.cuh); a guard of running minima and maxima notes any
-// operand outside those classes, and a warp in which one did recomputes the
-// step from its saved state with the library's routines (LibraryMath), to
-// the same bits. No operand of the benchmark's commands leaves the classes.
+// Division, root and trigonometry without the library's checks. The
+// library's `a / b` and `sqrtf` check their operands and send a zero
+// numerator or radicand, or one below about 2^-100, to a long subroutine (a
+// zero numerator: 282 clocks against 73 on a dependent chain); the hover and
+// compass commands meet those every step. sincosf reduces its argument by pi
+// / 2 and branches on its size; atan2f branches on two zeros and on two
+// infinities, and divides and takes a reciprocal with the checked sequences.
+// Each check holds the next dependent instruction until it resolves. So each
+// control step runs first as a fast step (FastMath): the library's own inline
+// sequences without their checks, exact on their fast classes, zeros
+// included (csrc/rn_math.cuh): div_rn, sqrt_rn; sincos_small_rn for the
+// substep's angle |w| pyb_dt / 2, the polynomials alone where the reduction
+// is the identity (|x| <= pi / 4; 41 clocks against sincosf's 120); sincos_rn
+// for yaw, the reduction without the large-argument branch (|x| < 105615);
+// atan2_rn with div_rn inside and no branch in front (116 clocks against
+// 251). A guard of running minima and maxima (an angle's magnitude: at most
+// 0.78125 for the small angle, below 105615 for yaw) notes any operand outside
+// those classes, and a warp in which one did recomputes the step from its
+// saved state with the library's routines (LibraryMath), to the same bits.
+// No operand of the benchmark's commands leaves the classes. asinf keeps the
+// library's: its path has no check.
 //
 // Math. IEEE atan2f, asinf, sincosf, sqrtf and true division. Build without
 // --use_fast_math (no __sinf, no approximate division) and with -fmad=false,
@@ -135,9 +144,10 @@ __device__ __forceinline__ float max0(float x) { return max_nan(x, 0.0f); }
 
 // The counts of K1's counting build, in the order of the counts buffer
 // (ops/velocity_rollout.RN_COUNTS): zero numerators, zero radicands and zero
-// atan2 arguments that the fast step takes inline, operations outside the
-// fast classes, and env-steps recomputed with the library.
-enum { kZeroNum, kZeroRad, kZeroAtan2, kFallback, kReplayed, kNumCounts };
+// atan2 arguments that the fast step takes inline, sines and cosines it takes
+// without the reduction, operations outside the fast classes, and env-steps
+// recomputed with the library.
+enum { kZeroNum, kZeroRad, kZeroAtan2, kSmallAngle, kFallback, kReplayed, kNumCounts };
 
 // One thread's counts: nothing in the build the cells launch.
 template <bool Count>
@@ -146,6 +156,8 @@ struct Tally {
   __device__ void quotient(float, float, bool) {}
   __device__ void root(float, bool) {}
   __device__ void arctan(float, float, bool) {}
+  __device__ void small_angle(float, bool) {}
+  __device__ void reduced_angle(float, bool) {}
   __device__ void replay(bool) {}
   __device__ void flush(unsigned long long*) const {}
 };
@@ -168,7 +180,17 @@ struct Tally<true> {
     n[kFallback] += !rn_sqrt_fast(x);
   }
   __device__ void arctan(float y, float x, bool mine) {
-    if (on && mine) n[kZeroAtan2] += y == 0.0f && x > 0.0f;
+    if (!(on && mine)) return;
+    n[kZeroAtan2] += y == 0.0f && x > 0.0f;
+    n[kFallback] += !rn_atan2_fast(y, x);
+  }
+  __device__ void small_angle(float x, bool mine) {
+    if (!(on && mine)) return;
+    n[kSmallAngle] += rn_small_angle(x);
+    n[kFallback] += !rn_small_angle(x);
+  }
+  __device__ void reduced_angle(float x, bool mine) {
+    if (on && mine) n[kFallback] += !rn_reduced_angle(x);
   }
   __device__ void replay(bool mine) { n[kReplayed] += on && mine; }
   __device__ void flush(unsigned long long* counts) const {
@@ -179,11 +201,13 @@ struct Tally<true> {
   }
 };
 
-// The arithmetic of a control step. FastMath: the library's inline division
-// and root sequences without their checks, and atan2f with a zero y taken
-// inline (csrc/rn_math.cuh); its guard notes any operand outside their fast
-// classes. `divisor` registers a divisor that changes (the constant ones seed
-// the guard). LibraryMath: the library's `a / b`, `sqrtf` and `atan2f`.
+// The arithmetic of a control step. FastMath: the library's inline division,
+// root, sine and cosine and arc tangent sequences without their checks
+// (csrc/rn_math.cuh): `sincos_small` without the reduction (the substep's
+// angle), `sincos` without the Payne-Hanek branch (yaw); its guard notes any
+// operand outside their fast classes. `divisor` registers a divisor that
+// changes (the constant ones seed the guard). LibraryMath: the library's
+// `a / b`, `sqrtf`, `atan2f` and `sincosf`.
 template <bool Count>
 struct FastMath {
   RnGuard guard;
@@ -199,8 +223,19 @@ struct FastMath {
     return sqrt_rn(x);
   }
   __device__ __forceinline__ float arctan(float y, float x, bool mine) {
+    guard.arctan(y, x);
     tally.arctan(y, x, mine);
     return atan2_rn(y, x);
+  }
+  __device__ __forceinline__ void sincos_small(float x, float* s, float* c, bool mine) {
+    guard.small_angle(x);
+    tally.small_angle(x, mine);
+    sincos_small_rn(x, s, c);
+  }
+  __device__ __forceinline__ void sincos(float x, float* s, float* c, bool mine) {
+    guard.reduced_angle(x);
+    tally.reduced_angle(x, mine);
+    sincos_rn(x, s, c);
   }
   __device__ __forceinline__ void divisor(float b) { guard.divisor(b); }
 };
@@ -209,6 +244,12 @@ struct LibraryMath {
   __device__ __forceinline__ float div(float a, float b, bool) const { return a / b; }
   __device__ __forceinline__ float root(float x, bool) const { return sqrtf(x); }
   __device__ __forceinline__ float arctan(float y, float x, bool) const { return atan2f(y, x); }
+  __device__ __forceinline__ void sincos_small(float x, float* s, float* c, bool) const {
+    sincosf(x, s, c);
+  }
+  __device__ __forceinline__ void sincos(float x, float* s, float* c, bool) const {
+    sincosf(x, s, c);
+  }
   __device__ __forceinline__ void divisor(float) const {}
 };
 
@@ -298,7 +339,7 @@ __device__ __forceinline__ void control_step(State& s, const VelConsts& c, const
     const float ttz = c.i_for[2] * s.ip[2] + c.d_for[2] * ez + c.grav;
     const float scalar_thrust = max0(ttx * r02 + tty * r12 + ttz * r22);
     float syaw, cyaw;
-    sincosf(yaw, &syaw, &cyaw);
+    m.sincos(yaw, &syaw, &cyaw, first);
     // scalar_thrust / 4 kf and the rate errors -(rpy - last rpy) / ctrl_dt.
     const float cur[3] = {roll, pitch, yaw};
     float d1[4];
@@ -393,7 +434,7 @@ __device__ __forceinline__ void control_step(State& s, const VelConsts& c, const
     m.divisor(sn);
     const float theta = sn * c.pyb_dt * 0.5f;
     float sin_t, ct;
-    sincosf(theta, &sin_t, &ct);
+    m.sincos_small(theta, &sin_t, &ct, first);
     // The accelerations' divisions by m, and sin(theta) / |w|.
     float d[4];
     g.template map<4>(div, {r02 * fsum, r12 * fsum, r22 * fsum, sin_t}, {c.m, c.m, c.m, sn}, d);

@@ -14,8 +14,8 @@ package's layout at this boundary: a dict of (E,) float32 columns keyed by
   ``velocity_step_soa``; the tests and ``chip_smoke.py`` hold K1 against it.
 
 ``velocity_rollout_counts`` launches K1's counting build, which the main path
-never runs, and returns how often K1's step took a zero operand inline and how
-often it fell back to the library's division and root (``RN_COUNTS``).
+never runs, and returns how often K1's step took a zero operand or a small
+angle inline and how often it fell back to the library (``RN_COUNTS``).
 """
 
 import ctypes
@@ -47,9 +47,11 @@ _K1_WARPS = 1024
 # What K1's counting build counts (csrc/velocity_rollout.cu, in this order),
 # over all envs and control steps: divisions with a zero numerator, roots of a
 # zero and atan2 of a zero y over a positive x, which its fast step takes
-# inline (csrc/rn_math.cuh); divisions and roots outside the fast step's
-# classes; and env-steps recomputed with the library's division and root.
-RN_COUNTS = ("zero_numerator", "zero_radicand", "zero_atan2", "fallback", "replayed")
+# inline (csrc/rn_math.cuh); the substeps' sines and cosines it takes without
+# the reduction; divisions, roots, angles and atan2 operands outside the fast
+# step's classes; and env-steps recomputed with the library.
+RN_COUNTS = ("zero_numerator", "zero_radicand", "zero_atan2", "small_angle", "fallback",
+             "replayed")
 
 
 def choose_lanes(E: int) -> int:

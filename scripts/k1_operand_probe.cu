@@ -1,15 +1,21 @@
 // Which operands send the CUDA library's IEEE division and square root (and
 // atan2f) to their slow subroutines, and what the fast step of kernel K1
-// (div_rn, sqrt_rn, atan2_rn in gym_pybullet_drones_tpu_torch/csrc/rn_math.cuh)
-// costs on each class. One warp a block runs a chain of dependent operations
-// on one operand class and times it with clock64(); each step feeds the next
-// through a select that never fires, so the operand's class stays fixed.
+// (div_rn, sqrt_rn, atan2_rn, sincos_small_rn, sincos_rn in
+// gym_pybullet_drones_tpu_torch/csrc/rn_math.cuh) costs on each class. One
+// warp a block runs a chain of dependent operations on one operand class and
+// times it with clock64(); each step feeds the next through a select that
+// never fires, so the operand's class stays fixed.
 //
 //  1. Classes: clocks per operation of `a / b`, div_rn, `sqrtf`, sqrt_rn,
 //     atan2f, atan2_rn, asinf and sincosf on a normal operand, a zero, a
 //     subnormal, a small normal (2^-110) and, for the division, a subnormal
 //     quotient and a zero divisor (div_rn is exact only on its fast class;
-//     its times show that it has no slow path).
+//     its times show that it has no slow path). Then the trigonometry at the
+//     magnitudes of K1's operands: sincosf against sincos_small_rn at the
+//     substep's angles (0, 1e-12, 1e-3, 0.1), sincosf against sincos_rn at
+//     yaw's (0, +-pi/2, +-3), atan2f against atan2_rn on (y, x) pairs whose
+//     angle is about 0, 1e-12, 1e-3, 0.1, +-pi/2 and +-3, and asinf at the
+//     substep's angles (its root has no check: there is no asin_rn).
 //  2. Scans: clocks per `a / b` for a = 1.5 2^ea, ea = -149 ... 127, and a =
 //     0, over b = 1.25 2^eb, eb = -149 ... 127 (FCHK's class: printed as the
 //     ranges of ea that run slow for each eb); per `sqrtf` and sqrt_rn for x =
@@ -40,7 +46,10 @@ __device__ __forceinline__ float feed(float y, float v) {
   return __float_as_uint(y) == kNever ? y : v;
 }
 
-enum Op { kDivLib, kDivRn, kSqrtLib, kSqrtRn, kAtan2, kAsin, kSincos, kFeed, kAtan2Rn, kNumOps };
+enum Op {
+  kDivLib, kDivRn, kSqrtLib, kSqrtRn, kAtan2, kAsin, kSincos, kFeed, kAtan2Rn, kSincosSmall,
+  kSincosRn, kNumOps
+};
 
 __device__ __forceinline__ float apply(int op, float x, float b) {
   switch (op) {
@@ -54,6 +63,16 @@ __device__ __forceinline__ float apply(int op, float x, float b) {
     case kSincos: {
       float s, c;
       sincosf(x, &s, &c);
+      return s + c;
+    }
+    case kSincosSmall: {
+      float s, c;
+      sincos_small_rn(x, &s, &c);
+      return s + c;
+    }
+    case kSincosRn: {
+      float s, c;
+      sincos_rn(x, &s, &c);
       return s + c;
     }
     default: return x;
@@ -85,6 +104,8 @@ __device__ float chain_of(int op, float a, float b) {
     case kAsin: return chain<kAsin>(a, b);
     case kSincos: return chain<kSincos>(a, b);
     case kAtan2Rn: return chain<kAtan2Rn>(a, b);
+    case kSincosSmall: return chain<kSincosSmall>(a, b);
+    case kSincosRn: return chain<kSincosRn>(a, b);
     default: return chain<kFeed>(a, b);
   }
 }
@@ -140,7 +161,8 @@ static void save(const char* dir, const char* name, const std::vector<float>& v)
 int main(int argc, char** argv) {
   const char* dir = argc > 1 ? argv[1] : nullptr;
   const char* names[kNumOps] = {"a / b", "div_rn", "sqrtf", "sqrt_rn", "atan2f(y, x)",
-                                "asinf", "sincosf", "feed alone", "atan2_rn(y, x)"};
+                                "asinf", "sincosf", "feed alone", "atan2_rn(y, x)",
+                                "sincos_small_rn", "sincos_rn"};
   // 1. Classes.
   const float dt = 1.0f / 48.0f, m = 0.027f;
   std::vector<Case> cases;
@@ -176,6 +198,32 @@ int main(int argc, char** argv) {
     add(op, p2(1.0, -56), b, "2^-56");
     add(op, p2(1.5, -110), b, "1.5 2^-110");
     add(op, p2(1.5, -140), b, "subnormal 1.5 2^-140");
+  }
+  // K1's magnitudes: the substep's angle theta, yaw, the atan2 pairs of roll
+  // and yaw (x near 1: a level drone), pitch.
+  const char* small_names[] = {"0", "1e-12", "1e-3", "0.1"};
+  const float smalls[] = {0.0f, 1e-12f, 1e-3f, 0.1f};
+  for (int op : {kSincos, kSincosSmall, kAsin}) {
+    for (int k = 0; k < 4; ++k) {
+      add(op, smalls[k], 0.0f, (std::string("K1 theta ") + small_names[k]).c_str());
+    }
+  }
+  const char* yaw_names[] = {"0", "pi/2", "-pi/2", "3", "-3"};
+  const float yaws[] = {0.0f, 1.5707964f, -1.5707964f, 3.0f, -3.0f};
+  for (int op : {kSincos, kSincosRn}) {
+    for (int k = 0; k < 5; ++k) {
+      add(op, yaws[k], 0.0f, (std::string("K1 yaw ") + yaw_names[k]).c_str());
+    }
+  }
+  const char* pair_names[] = {"(0, 1): 0", "(1e-12, 1): 1e-12", "(1e-3, 1): 1e-3",
+                              "(0.1, 1): 0.1", "(1, 1e-3): pi/2", "(-1, 1e-3): -pi/2",
+                              "(0.14, -0.99): 3", "(-0.14, -0.99): -3"};
+  const float pair_y[] = {0.0f, 1e-12f, 1e-3f, 0.1f, 1.0f, -1.0f, 0.14f, -0.14f};
+  const float pair_x[] = {1.0f, 1.0f, 1.0f, 1.0f, 1e-3f, 1e-3f, -0.99f, -0.99f};
+  for (int op : {kAtan2, kAtan2Rn}) {
+    for (int k = 0; k < 8; ++k) {
+      add(op, pair_y[k], pair_x[k], (std::string("K1 ") + pair_names[k]).c_str());
+    }
   }
   Case* dcases;
   float* dclk;

@@ -128,15 +128,17 @@ def test_k1_equals_plain_version_bit_for_bit_on_formation_commands(cuda, E, kind
 def test_k1_counting_build_sees_zeros_taken_inline_and_no_fallback(cuda, E, kind):
     """K1's counting build counts each operation of an env once, whatever
     the lanes: no operand of these commands lies outside the fast step's
-    classes, so no step is recomputed with the library, and on hover (zero
-    body rates, zero lateral thrust, an identity quaternion) the fast step
-    takes zero numerators, radicands and atan2 arguments every step."""
+    classes, so no step is recomputed with the library, every substep takes
+    its sine and cosine without the reduction, and on hover (zero body rates,
+    zero lateral thrust, an identity quaternion) the fast step takes zero
+    numerators, radicands and atan2 arguments every step."""
     args, soa, _ = _case(cuda, E)
     act = _command(cuda, E, kind)
     counts = [profiling.velocity_rollout_counts(*args, 240, soa, act, lanes=L) for L in tro.LANES]
     assert all(c == counts[0] for c in counts), counts
     assert set(counts[0]) == set(tro.RN_COUNTS)
     assert counts[0]["fallback"] == 0 and counts[0]["replayed"] == 0, counts[0]
+    assert counts[0]["small_angle"] == args[3] * E * 240, counts[0]  # args[3]: 5 substeps
     if kind == "hover":
         for k in ("zero_numerator", "zero_radicand", "zero_atan2"):
             assert counts[0][k] >= E * 240, counts[0]
@@ -154,6 +156,43 @@ def test_k1_recomputes_a_step_with_an_operand_outside_the_fast_classes(cuda, lan
     act = _command(cuda, E, "hover")
     counts = profiling.velocity_rollout_counts(*args, 48, soa, act, lanes=lanes)
     assert counts["fallback"] > 0 and counts["replayed"] > 0, counts
+    got = tro.velocity_rollout_cuda(*args, 48, soa, act, lanes=lanes)
+    want = tro.velocity_rollout_plain(*args, 48, soa, act)
+    torch.cuda.synchronize()
+    for k in tsoa.SOA_KEYS:
+        assert torch.equal(got[k].view(torch.int32), want[k].view(torch.int32)), k
+
+
+@pytest.mark.parametrize("lanes", tro.LANES)
+@pytest.mark.parametrize("case", ["spin", "yaw_near_pi"])
+def test_k1_takes_the_angles_outside_the_small_class_to_the_library(cuda, case, lanes):
+    """``spin``: body rates of 400 rad/s in every 97th env put the substep's
+    angle |w| pyb_dt / 2 past sincos_small_rn's class (|x| <= pi / 4), where
+    sincosf's reduction is no longer the identity: their warps recompute
+    those steps with the library. ``yaw_near_pi``: every env's yaw within
+    1e-3 of +-pi through the quaternion, where sincos_rn's reduction takes
+    the quadrants 2 and -2 and atan2_rn's x is negative: no step leaves the
+    fast classes. Either way the state equals the plain version's bit for
+    bit."""
+    E = 1004
+    args, soa, _ = _case(cuda, E)
+    soa = dict(soa)
+    if case == "spin":
+        for k in ("wx", "wy", "wz"):
+            soa[k] = soa[k].clone()
+            soa[k][::97] = 400.0 / np.sqrt(3.0)
+        act = _command(cuda, E, "hover")
+    else:
+        yaw = np.where(np.arange(E) % 2 == 0, 1.0, -1.0) * (np.pi - 1e-3)
+        soa["qz"] = torch.as_tensor(np.sin(yaw / 2), dtype=torch.float32, device=cuda)
+        soa["qw"] = torch.as_tensor(np.cos(yaw / 2), dtype=torch.float32, device=cuda)
+        soa["lrz"] = torch.as_tensor(yaw, dtype=torch.float32, device=cuda)  # the last yaw
+        act = _command(cuda, E, "compass")
+    counts = profiling.velocity_rollout_counts(*args, 48, soa, act, lanes=lanes)
+    if case == "spin":
+        assert counts["fallback"] > 0 and counts["replayed"] > 0, counts
+    else:
+        assert counts["fallback"] == 0 and counts["replayed"] == 0, counts
     got = tro.velocity_rollout_cuda(*args, 48, soa, act, lanes=lanes)
     want = tro.velocity_rollout_plain(*args, 48, soa, act)
     torch.cuda.synchronize()
