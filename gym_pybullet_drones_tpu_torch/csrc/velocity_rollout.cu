@@ -86,492 +86,33 @@
 //
 // Interface: plain C, loaded with ctypes. The launch goes on the caller's
 // stream; the function returns cudaGetLastError().
+//
+// Sources. This file is the library the cells load: the kernel at L = 1, 2
+// and 4 with FastMath, and its one entry point `velocity_rollout`; it holds no
+// counter and no atomic. The state, the step, the time loop, the guard and
+// the library recompute are in csrc/velocity_rollout.cuh, shared with K1's
+// counting build (csrc/velocity_rollout_counts.cu), a library of its own that
+// only tests and scripts build and load.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <string.h>
-
-#include "rn_math.cuh"
+#include "velocity_rollout.cuh"
 
 namespace {
 
-constexpr int kStateRows = 26;
-constexpr int kBlock = 32;  // one warp a block: the warps spread over every SM
-constexpr unsigned kAll = 0xFFFFFFFFu;
-
-// Host packs these floats in this order (ops/velocity_rollout.py, _pack).
-struct VelConsts {
-  float i_for[3], d_for[3];
-  float p_tor[3], i_tor[3], d_tor[3];
-  float mixer[4][3];
-  float scale, cnst, min_pwm, max_pwm;
-  float four_kf_c;  // 4.0 * kf of the controller, formed in double on the host
-  float grav;
-  float kf, km, yaw_sign, m, g;
-  float J[3];
-  float dt_jinv[3];  // pyb_dt * J^-1 diagonal, formed in double on the host
-  float offs[4][3];
-  float z_min;
-  float ctrl_dt, pyb_dt, speed_limit;
-};
-constexpr int kNumConsts = sizeof(VelConsts) / sizeof(float);
-static_assert(kNumConsts == 60, "VelConsts layout changed: update the host packing");
-
-// One env's state, the 26 rows of SOA_KEYS.
-struct State {
-  float px, py, pz, qx, qy, qz, qw, vx, vy, vz, wx, wy, wz;
-  float rpm[4], ip[3], ir[3], lr[3];
-};
-
-// max and min that return NaN if either input is NaN (PTX, sm_80 and up).
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ float clip(float x, float lo, float hi) {
-  return min_nan(max_nan(x, lo), hi);
-}
-
-__device__ __forceinline__ float max0(float x) { return max_nan(x, 0.0f); }
-
-// The counts of K1's counting build, in the order of the counts buffer
-// (ops/velocity_rollout.RN_COUNTS): zero numerators, zero radicands and zero
-// atan2 arguments that the fast step takes inline, sines and cosines it takes
-// without the reduction, operations outside the fast classes, and env-steps
-// recomputed with the library.
-enum { kZeroNum, kZeroRad, kZeroAtan2, kSmallAngle, kFallback, kReplayed, kNumCounts };
-
-// One thread's counts: nothing in the build the cells launch.
-template <bool Count>
-struct Tally {
-  __device__ explicit Tally(bool) {}
-  __device__ void quotient(float, float, bool) {}
-  __device__ void root(float, bool) {}
-  __device__ void arctan(float, float, bool) {}
-  __device__ void small_angle(float, bool) {}
-  __device__ void reduced_angle(float, bool) {}
-  __device__ void replay(bool) {}
-  __device__ void flush(unsigned long long*) const {}
-};
-
-// Each operation of an env once: `on` is false past the ragged edge, and the
-// caller passes `mine` true on the one lane of the group that evaluates it.
-template <>
-struct Tally<true> {
-  bool on;
-  unsigned long long n[kNumCounts] = {};
-  __device__ explicit Tally(bool on_) : on(on_) {}
-  __device__ void quotient(float a, float b, bool mine) {
-    if (!(on && mine)) return;
-    n[kZeroNum] += a == 0.0f;
-    n[kFallback] += !rn_div_fast(a, b);
-  }
-  __device__ void root(float x, bool mine) {
-    if (!(on && mine)) return;
-    n[kZeroRad] += x == 0.0f;
-    n[kFallback] += !rn_sqrt_fast(x);
-  }
-  __device__ void arctan(float y, float x, bool mine) {
-    if (!(on && mine)) return;
-    n[kZeroAtan2] += y == 0.0f && x > 0.0f;
-    n[kFallback] += !rn_atan2_fast(y, x);
-  }
-  __device__ void small_angle(float x, bool mine) {
-    if (!(on && mine)) return;
-    n[kSmallAngle] += rn_small_angle(x);
-    n[kFallback] += !rn_small_angle(x);
-  }
-  __device__ void reduced_angle(float x, bool mine) {
-    if (on && mine) n[kFallback] += !rn_reduced_angle(x);
-  }
-  __device__ void replay(bool mine) { n[kReplayed] += on && mine; }
-  __device__ void flush(unsigned long long* counts) const {
-#pragma unroll
-    for (int k = 0; k < kNumCounts; ++k) {
-      if (n[k]) atomicAdd(&counts[k], n[k]);
-    }
-  }
-};
-
-// The arithmetic of a control step. FastMath: the library's inline division,
-// root, sine and cosine and arc tangent sequences without their checks
-// (csrc/rn_math.cuh): `sincos_small` without the reduction (the substep's
-// angle), `sincos` without the Payne-Hanek branch (yaw); its guard notes any
-// operand outside their fast classes. `divisor` registers a divisor that
-// changes (the constant ones seed the guard). LibraryMath: the library's
-// `a / b`, `sqrtf`, `atan2f` and `sincosf`.
-template <bool Count>
-struct FastMath {
-  RnGuard guard;
-  Tally<Count>& tally;
-  __device__ __forceinline__ float div(float a, float b, bool mine) {
-    guard.numerator(a);
-    tally.quotient(a, b, mine);
-    return div_rn(a, b);
-  }
-  __device__ __forceinline__ float root(float x, bool mine) {
-    guard.radicand(x);
-    tally.root(x, mine);
-    return sqrt_rn(x);
-  }
-  __device__ __forceinline__ float arctan(float y, float x, bool mine) {
-    guard.arctan(y, x);
-    tally.arctan(y, x, mine);
-    return atan2_rn(y, x);
-  }
-  __device__ __forceinline__ void sincos_small(float x, float* s, float* c, bool mine) {
-    guard.small_angle(x);
-    tally.small_angle(x, mine);
-    sincos_small_rn(x, s, c);
-  }
-  __device__ __forceinline__ void sincos(float x, float* s, float* c, bool mine) {
-    guard.reduced_angle(x);
-    tally.reduced_angle(x, mine);
-    sincos_rn(x, s, c);
-  }
-  __device__ __forceinline__ void divisor(float b) { guard.divisor(b); }
-};
-
-struct LibraryMath {
-  __device__ __forceinline__ float div(float a, float b, bool) const { return a / b; }
-  __device__ __forceinline__ float root(float x, bool) const { return sqrtf(x); }
-  __device__ __forceinline__ float arctan(float y, float x, bool) const { return atan2f(y, x); }
-  __device__ __forceinline__ void sincos_small(float x, float* s, float* c, bool) const {
-    sincosf(x, s, c);
-  }
-  __device__ __forceinline__ void sincos(float x, float* s, float* c, bool) const {
-    sincosf(x, s, c);
-  }
-  __device__ __forceinline__ void divisor(float) const {}
-};
-
-__host__ __device__ constexpr int log2_of(int x) { return x <= 1 ? 0 : 1 + log2_of(x / 2); }
-
-// The L lanes of one env. j: this lane's rank in the group.
 template <int L>
-struct Group {
-  int j;
-
-  // a[i] for i = r L + j, the operand of this lane in round r (a tree of
-  // selects on the bits of j; indices past K take the last operand). Every
-  // index is a constant once the loops unroll, so v stays in registers.
-  template <int K>
-  __device__ __forceinline__ float operand(const float (&a)[K], int r) const {
-    constexpr int kLevels = log2_of(L);
-    float v[L];
-#pragma unroll
-    for (int m = 0; m < L; ++m) v[m] = a[min(r * L + m, K - 1)];
-#pragma unroll
-    for (int level = 0; level < kLevels; ++level) {
-      const int w = L >> (level + 1);
-#pragma unroll
-      for (int m = 0; m < L / 2; ++m) {
-        if (m < w) v[m] = (j & w) ? v[m + w] : v[m];
-      }
-    }
-    return v[0];
-  }
-
-  // y[i] = f(a[i], b[i], mine) for the K independent operations i of one
-  // stage, on every lane of the group: lane j evaluates i = j, j + L, ...
-  // (`mine` false for the repeats past K) and the results travel by shuffle,
-  // bit for bit.
-  template <int K, class F>
-  __device__ __forceinline__ void map(F f, const float (&a)[K], const float (&b)[K],
-                                      float (&y)[K]) const {
-    constexpr int kRounds = (K + L - 1) / L;
-    float part[kRounds];
-#pragma unroll
-    for (int r = 0; r < kRounds; ++r) {
-      part[r] = f(operand<K>(a, r), operand<K>(b, r), r * L + j < K);
-    }
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      if constexpr (L == 1) {
-        y[i] = part[i];
-      } else {
-        y[i] = __shfl_sync(kAll, part[i / L], i % L, L);
-      }
-    }
-  }
-};
-
-// One control step of env state s with the arithmetic of M: the DSLPID
-// velocity pipeline, then n_substeps Physics.PYB substeps. (tvx, tvy, tvz):
-// the velocity target.
-template <int L, class M>
-__device__ __forceinline__ void control_step(State& s, const VelConsts& c, const Group<L>& g,
-                                             float tvx, float tvy, float tvz, int n_substeps,
-                                             M& m) {
-  const bool first = g.j == 0;  // the lane that counts the group's serial operations
-  const auto div = [&](float a, float b, bool mine) { return m.div(a, b, mine); };
-  // ---------------- DSLPID, velocity pipeline ----------------
-  {
-    const float xx = s.qx * s.qx, yy = s.qy * s.qy, zz = s.qz * s.qz;
-    const float xy = s.qx * s.qy, xz = s.qx * s.qz, yz = s.qy * s.qz;
-    const float wxq = s.qw * s.qx, wyq = s.qw * s.qy, wzq = s.qw * s.qz;
-    const float r00 = 1.0f - 2.0f * (yy + zz), r01 = 2.0f * (xy - wzq), r02 = 2.0f * (xz + wyq);
-    const float r10 = 2.0f * (xy + wzq), r11 = 1.0f - 2.0f * (xx + zz), r12 = 2.0f * (yz - wxq);
-    const float r20 = 2.0f * (xz - wyq), r21 = 2.0f * (yz + wxq), r22 = 1.0f - 2.0f * (xx + yy);
-
-    float rpy[2];  // roll, yaw
-    g.template map<2>([&](float y, float x, bool mine) { return m.arctan(y, x, mine); },
-                      {r21, r10}, {r22, r00}, rpy);
-    const float roll = rpy[0], yaw = rpy[1];
-    const float pitch = asinf(clip(-r20, -1.0f, 1.0f));
-
-    // pos_e == 0 (target_pos = cur_pos): integrals clipped but unchanged,
-    // z twice (the generic clip, then its own).
-    s.ip[0] = clip(s.ip[0], -2.0f, 2.0f);
-    s.ip[1] = clip(s.ip[1], -2.0f, 2.0f);
-    s.ip[2] = clip(clip(s.ip[2], -2.0f, 2.0f), -0.15f, 0.15f);
-    const float ex = tvx - s.vx, ey = tvy - s.vy, ez = tvz - s.vz;
-    const float ttx = c.i_for[0] * s.ip[0] + c.d_for[0] * ex;
-    const float tty = c.i_for[1] * s.ip[1] + c.d_for[1] * ey;
-    const float ttz = c.i_for[2] * s.ip[2] + c.d_for[2] * ez + c.grav;
-    const float scalar_thrust = max0(ttx * r02 + tty * r12 + ttz * r22);
-    float syaw, cyaw;
-    m.sincos(yaw, &syaw, &cyaw, first);
-    // scalar_thrust / 4 kf and the rate errors -(rpy - last rpy) / ctrl_dt.
-    const float cur[3] = {roll, pitch, yaw};
-    float d1[4];
-    g.template map<4>(div, {scalar_thrust, -(roll - s.lr[0]), -(pitch - s.lr[1]), -(yaw - s.lr[2])},
-                      {c.four_kf_c, c.ctrl_dt, c.ctrl_dt, c.ctrl_dt}, d1);
-    float roots[2];  // sqrt(thrust / 4 kf), |t|
-    g.template map<2>([&](float x, float, bool mine) { return m.root(x, mine); },
-                      {d1[0], ttx * ttx + tty * tty + ttz * ttz}, {0.0f, 0.0f}, roots);
-    const float tnorm = roots[1];
-    m.divisor(tnorm);
-    float d2[4];  // the thrust PWM and z_des = t / |t|
-    g.template map<4>(div, {roots[0] - c.cnst, ttx, tty, ttz}, {c.scale, tnorm, tnorm, tnorm}, d2);
-    const float thrust_pwm = d2[0], zdx = d2[1], zdy = d2[2], zdz = d2[3];
-    // y_des = normalize(z_des x x_c), x_c = (cos yaw, sin yaw, 0)
-    const float yx0 = zdy * 0.0f - zdz * syaw;
-    const float yy0 = zdz * cyaw - zdx * 0.0f;
-    const float yz0 = zdx * syaw - zdy * cyaw;
-    const float yn = m.root(yx0 * yx0 + yy0 * yy0 + yz0 * yz0, first);
-    m.divisor(yn);
-    float yd[3];
-    g.template map<3>(div, {yx0, yy0, yz0}, {yn, yn, yn}, yd);
-    const float yx = yd[0], yyd = yd[1], yzd = yd[2];
-    // x_des = y_des x z_des
-    const float xxd = yyd * zdz - yzd * zdy;
-    const float xyd = yzd * zdx - yx * zdz;
-    const float xzd = yx * zdy - yyd * zdx;
-    // rot_matrix_e = Rd^T R - R^T Rd; Rd has columns (x_des, y_des, z_des).
-    const float e21 = (zdx * r01 + zdy * r11 + zdz * r21) - (r02 * yx + r12 * yyd + r22 * yzd);
-    const float e02 = (xxd * r02 + xyd * r12 + xzd * r22) - (r00 * zdx + r10 * zdy + r20 * zdz);
-    const float e10 = (yx * r00 + yyd * r10 + yzd * r20) - (r01 * xxd + r11 * xyd + r21 * xzd);
-    const float rot_e[3] = {e21, e02, e10};
-
-    float tq[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const float rr_e = d1[1 + k];
-      s.ir[k] = clip(s.ir[k] - rot_e[k] * c.ctrl_dt, -1500.0f, 1500.0f);
-      if (k < 2) s.ir[k] = clip(s.ir[k], -1.0f, 1.0f);
-      tq[k] = clip(-c.p_tor[k] * rot_e[k] + c.d_tor[k] * rr_e + c.i_tor[k] * s.ir[k],
-                   -3200.0f, 3200.0f);
-      s.lr[k] = cur[k];
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float pwm = thrust_pwm + c.mixer[k][0] * tq[0] + c.mixer[k][1] * tq[1] +
-                  c.mixer[k][2] * tq[2];
-      pwm = clip(pwm, c.min_pwm, c.max_pwm);
-      s.rpm[k] = c.scale * pwm + c.cnst;
-    }
-  }
-
-  // The forces depend on the RPMs alone: constant across the substeps.
-  float f[4], tm[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    f[k] = s.rpm[k] * s.rpm[k] * c.kf;
-    tm[k] = s.rpm[k] * s.rpm[k] * c.km * c.yaw_sign;
-  }
-  const float tau_z = -tm[0] + tm[1] - tm[2] + tm[3];
-  const float tau_x = f[0] * c.offs[0][1] + f[1] * c.offs[1][1] + f[2] * c.offs[2][1] +
-                      f[3] * c.offs[3][1];
-  const float tau_y = -(f[0] * c.offs[0][0] + f[1] * c.offs[1][0] + f[2] * c.offs[2][0] +
-                        f[3] * c.offs[3][0]);
-  const float fsum = f[0] + f[1] + f[2] + f[3];
-
-  // ---------------- physics substeps (Physics.PYB) ----------------
-  for (int k = 0; k < n_substeps; ++k) {
-    const float xx = s.qx * s.qx, yy = s.qy * s.qy, zz = s.qz * s.qz;
-    const float xy = s.qx * s.qy, xz = s.qx * s.qz, yz = s.qy * s.qz;
-    const float wxq = s.qw * s.qx, wyq = s.qw * s.qy, wzq = s.qw * s.qz;
-    const float r00 = 1.0f - 2.0f * (yy + zz), r01 = 2.0f * (xy - wzq), r02 = 2.0f * (xz + wyq);
-    const float r10 = 2.0f * (xy + wzq), r11 = 1.0f - 2.0f * (xx + zz), r12 = 2.0f * (yz - wxq);
-    const float r20 = 2.0f * (xz - wyq), r21 = 2.0f * (yz + wxq), r22 = 1.0f - 2.0f * (xx + yy);
-
-    // omega world -> body: R^T w; coupling = w x (J w), J diagonal
-    const float obx = r00 * s.wx + r10 * s.wy + r20 * s.wz;
-    const float oby = r01 * s.wx + r11 * s.wy + r21 * s.wz;
-    const float obz = r02 * s.wx + r12 * s.wy + r22 * s.wz;
-    const float cx = oby * (c.J[2] * obz) - obz * (c.J[1] * oby);
-    const float cy = obz * (c.J[0] * obx) - obx * (c.J[2] * obz);
-    const float cz = obx * (c.J[1] * oby) - oby * (c.J[0] * obx);
-    const float nbx = obx + c.dt_jinv[0] * (tau_x - cx);
-    const float nby = oby + c.dt_jinv[1] * (tau_y - cy);
-    const float nbz = obz + c.dt_jinv[2] * (tau_z - cz);
-    const float nwx = r00 * nbx + r01 * nby + r02 * nbz;
-    const float nwy = r10 * nbx + r11 * nby + r12 * nbz;
-    const float nwz = r20 * nbx + r21 * nby + r22 * nbz;
-
-    // integrate_quat (axis-angle, body rates nb), then renormalize
-    const float onorm = m.root(nbx * nbx + nby * nby + nbz * nbz, first);
-    const float sn = fmaxf(onorm, 1e-9f);
-    m.divisor(sn);
-    const float theta = sn * c.pyb_dt * 0.5f;
-    float sin_t, ct;
-    m.sincos_small(theta, &sin_t, &ct, first);
-    // The accelerations' divisions by m, and sin(theta) / |w|.
-    float d[4];
-    g.template map<4>(div, {r02 * fsum, r12 * fsum, r22 * fsum, sin_t}, {c.m, c.m, c.m, sn}, d);
-    const float axw = d[0], ayw = d[1], azw = d[2] - c.g, st = d[3];
-    const float nvx = s.vx + c.pyb_dt * axw, nvy = s.vy + c.pyb_dt * ayw;
-    const float nvz = s.vz + c.pyb_dt * azw;
-
-    s.px = s.px + c.pyb_dt * nvx;
-    s.py = s.py + c.pyb_dt * nvy;
-    const float npz = s.pz + c.pyb_dt * nvz;
-
-    const float mqx = nbz * s.qy - nby * s.qz + nbx * s.qw;
-    const float mqy = -nbz * s.qx + nbx * s.qz + nby * s.qw;
-    const float mqz = nby * s.qx - nbx * s.qy + nbz * s.qw;
-    const float mqw = -nbx * s.qx - nby * s.qy - nbz * s.qz;
-    const bool turn = onorm > 1e-9f;
-    const float qx = turn ? ct * s.qx + st * mqx : s.qx;
-    const float qy = turn ? ct * s.qy + st * mqy : s.qy;
-    const float qz = turn ? ct * s.qz + st * mqz : s.qz;
-    const float qw = turn ? ct * s.qw + st * mqw : s.qw;
-    const float qn = m.root(qx * qx + qy * qy + qz * qz + qw * qw, first);
-    m.divisor(qn);
-    float qd[4];
-    g.template map<4>(div, {qx, qy, qz, qw}, {qn, qn, qn, qn}, qd);
-    s.qx = qd[0];
-    s.qy = qd[1];
-    s.qz = qd[2];
-    s.qw = qd[3];
-
-    // plane contact clamp; `pressed` reads the pre-clamp acceleration
-    const bool below = npz < c.z_min;
-    const bool pressed = below & (azw <= 0.0f);
-    s.pz = below ? c.z_min : npz;
-    s.vx = nvx;
-    s.vy = nvy;
-    s.vz = below ? max0(nvz) : nvz;
-    s.wx = pressed ? 0.0f : nwx;
-    s.wy = pressed ? 0.0f : nwy;
-    s.wz = pressed ? 0.0f : nwz;
-  }
-}
-
-// Count: the counting build, which also adds its counts into
-// counts[kNumCounts]; the same arithmetic, so the same result.
-template <int L, bool Count>
 __global__ void __launch_bounds__(kBlock)
-velocity_rollout_kernel(const float* __restrict__ in, float* __restrict__ out,
-                        long long E, VelConsts c, int n_substeps, int num_steps,
-                        unsigned long long* __restrict__ counts) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long env = lane / L;
-  const Group<L> g{(int)(lane % L)};
-  const long long e = env < E ? env : E - 1;
-
-  State s;
-  s.px = in[0 * E + e], s.py = in[1 * E + e], s.pz = in[2 * E + e];
-  s.qx = in[3 * E + e], s.qy = in[4 * E + e], s.qz = in[5 * E + e], s.qw = in[6 * E + e];
-  s.vx = in[7 * E + e], s.vy = in[8 * E + e], s.vz = in[9 * E + e];
-  s.wx = in[10 * E + e], s.wy = in[11 * E + e], s.wz = in[12 * E + e];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) s.rpm[k] = in[(13 + k) * E + e];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    s.ip[k] = in[(17 + k) * E + e];
-    s.ir[k] = in[(20 + k) * E + e];
-    s.lr[k] = in[(23 + k) * E + e];
-  }
-  const float ax = in[26 * E + e], ay = in[27 * E + e], az = in[28 * E + e];
-  const float amag = in[29 * E + e];
-
-  // The velocity target depends on the action alone.
-  const float vnorm = sqrtf(ax * ax + ay * ay + az * az);
-  const float safe = fmaxf(vnorm, 1e-12f);
-  const float fac = vnorm > 0.0f ? c.speed_limit * fabsf(amag) / safe : 0.0f;
-  const float tvx = ax * fac, tvy = ay * fac, tvz = az * fac;
-
-  // The constant divisors bound the guard's divisors from the start.
-  const float den_lo = fminf(fminf(c.four_kf_c, c.ctrl_dt), fminf(c.scale, c.m));
-  const float den_hi = max_nan(max_nan(c.four_kf_c, c.ctrl_dt), max_nan(c.scale, c.m));
-  Tally<Count> tally(env < E);
-  for (int t = 0; t < num_steps; ++t) {
-    // Each step runs without the library's checks; a warp in which any
-    // operand fell outside the fast classes recomputes it with the library
-    // (every lane of a warp takes part in the shuffles), to the same bits.
-    State next = s;
-    FastMath<Count> fast{RnGuard(den_lo, den_hi), tally};
-    control_step(next, c, g, tvx, tvy, tvz, n_substeps, fast);
-    if (__any_sync(kAll, fast.guard.rare())) {
-      tally.replay(g.j == 0);
-      next = s;
-      LibraryMath lib;
-      control_step(next, c, g, tvx, tvy, tvz, n_substeps, lib);
-    }
-    s = next;
-  }
-
-  tally.flush(counts);
-  if (env >= E) return;
-  const float result[kStateRows] = {s.px, s.py, s.pz, s.qx, s.qy, s.qz, s.qw, s.vx, s.vy,
-                                    s.vz, s.wx, s.wy, s.wz, s.rpm[0], s.rpm[1], s.rpm[2],
-                                    s.rpm[3], s.ip[0], s.ip[1], s.ip[2], s.ir[0], s.ir[1],
-                                    s.ir[2], s.lr[0], s.lr[1], s.lr[2]};
-#pragma unroll
-  for (int k = 0; k < kStateRows; ++k) {
-    if (k % L == g.j) out[k * E + env] = result[k];
-  }
+velocity_rollout_kernel(const float* __restrict__ in, float* __restrict__ out, long long E,
+                        VelConsts c, int n_substeps, int num_steps) {
+  FastMath fast{step_guard(c)};
+  rollout_lane<L>(in, out, E, c, n_substeps, num_steps, fast);
 }
 
-template <int L, bool Count>
+template <int L>
 cudaError_t launch(const float* in, float* out, long long E, const VelConsts& c, int n_substeps,
-                   int num_steps, unsigned long long* counts, cudaStream_t st) {
+                   int num_steps, cudaStream_t st) {
   const long long blocks = (E * L + kBlock - 1) / kBlock;
-  velocity_rollout_kernel<L, Count><<<(unsigned int)blocks, kBlock, 0, st>>>(
-      in, out, E, c, n_substeps, num_steps, counts);
+  velocity_rollout_kernel<L><<<(unsigned int)blocks, kBlock, 0, st>>>(in, out, E, c, n_substeps,
+                                                                       num_steps);
   return cudaGetLastError();
-}
-
-template <bool Count>
-int run(const void* in, void* out, long long E, const void* consts, int n_consts, int n_substeps,
-        int num_steps, int lanes, void* counts, void* stream) {
-  if (n_consts != kNumConsts || E < 0 || n_substeps < 0 || num_steps < 0 ||
-      E * lanes >= (1LL << 31)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (E == 0) return (int)cudaSuccess;
-  VelConsts c;
-  memcpy(&c, consts, sizeof(VelConsts));
-  const auto* i = (const float*)in;
-  auto* o = (float*)out;
-  auto* n = (unsigned long long*)counts;
-  const auto st = (cudaStream_t)stream;
-  switch (lanes) {
-    case 1: return (int)launch<1, Count>(i, o, E, c, n_substeps, num_steps, n, st);
-    case 2: return (int)launch<2, Count>(i, o, E, c, n_substeps, num_steps, n, st);
-    case 4: return (int)launch<4, Count>(i, o, E, c, n_substeps, num_steps, n, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -581,13 +122,19 @@ int run(const void* in, void* out, long long E, const void* consts, int n_consts
 extern "C" int velocity_rollout(const void* in, void* out, long long E, const void* consts,
                                 int n_consts, int n_substeps, int num_steps, int lanes,
                                 void* stream) {
-  return run<false>(in, out, E, consts, n_consts, n_substeps, num_steps, lanes, nullptr, stream);
-}
-
-// K1's counting build: the same result, and counts (kNumCounts uint64, zeroed
-// by the caller) gains the counts of every env and step.
-extern "C" int velocity_rollout_counted(const void* in, void* out, long long E,
-                                        const void* consts, int n_consts, int n_substeps,
-                                        int num_steps, int lanes, void* counts, void* stream) {
-  return run<true>(in, out, E, consts, n_consts, n_substeps, num_steps, lanes, counts, stream);
+  if (!launch_args_ok(E, n_consts, n_substeps, num_steps, lanes)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (E == 0) return (int)cudaSuccess;
+  VelConsts c;
+  memcpy(&c, consts, sizeof(VelConsts));
+  const auto* i = (const float*)in;
+  auto* o = (float*)out;
+  const auto st = (cudaStream_t)stream;
+  switch (lanes) {
+    case 1: return (int)launch<1>(i, o, E, c, n_substeps, num_steps, st);
+    case 2: return (int)launch<2>(i, o, E, c, n_substeps, num_steps, st);
+    case 4: return (int)launch<4>(i, o, E, c, n_substeps, num_steps, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

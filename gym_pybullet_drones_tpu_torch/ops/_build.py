@@ -28,14 +28,17 @@ def _flags(fmad: bool):
 
 
 # Each source's flags. K1 (velocity_rollout) equals its plain version bit for
-# bit only if adds and multiplies round separately, as in PyTorch: -fmad=false.
-# K2, K4, K5 (wake_pair_kernels) and K3, K6 (masked_pair_kernels) contract
-# multiply-adds into FMAs: fewer instructions a pair. The wake is held to
-# tolerances; the contact term rounds each step itself (csrc/pair_terms.cuh),
+# bit only if adds and multiplies round separately, as in PyTorch: -fmad=false;
+# its counting build (velocity_rollout_counts) runs the same step, with the
+# same flags. K2, K4, K5 (wake_pair_kernels) and K3, K6 (masked_pair_kernels)
+# contract multiply-adds into FMAs: fewer instructions a pair. The wake is held
+# to tolerances; the contact term rounds each step itself (csrc/pair_terms.cuh),
 # so K4 still equals its plain version bit for bit. K7 (render_views) follows
 # its plain version's rounding: -fmad=false.
-NVCC_FLAGS = {"velocity_rollout": _flags(fmad=False), "wake_pair_kernels": _flags(fmad=True),
-              "masked_pair_kernels": _flags(fmad=True), "render_views": _flags(fmad=False)}
+NVCC_FLAGS = {"velocity_rollout": _flags(fmad=False),
+              "velocity_rollout_counts": _flags(fmad=False),
+              "wake_pair_kernels": _flags(fmad=True), "masked_pair_kernels": _flags(fmad=True),
+              "render_views": _flags(fmad=False)}
 
 
 def _nvcc() -> str:

@@ -13,9 +13,11 @@ package's layout at this boundary: a dict of (E,) float32 columns keyed by
 * On CPU tensors it runs the plain version, a Python loop of
   ``velocity_step_soa``; the tests and ``chip_smoke.py`` hold K1 against it.
 
-``velocity_rollout_counts`` launches K1's counting build, which the main path
-never runs, and returns how often K1's step took a zero operand or a small
-angle inline and how often it fell back to the library (``RN_COUNTS``).
+``velocity_rollout_counts`` launches K1's counting build
+(``csrc/velocity_rollout_counts.cu``, a library of its own, built and loaded
+at its first call; the main path never builds it) and returns how often K1's
+step took a zero operand or a small angle inline and how often it fell back
+to the library (``RN_COUNTS``).
 """
 
 import ctypes
@@ -34,6 +36,7 @@ from gym_pybullet_drones_tpu_torch.ops.velocity_soa import (
 )
 
 KERNEL = "velocity_rollout"
+COUNTS_KERNEL = "velocity_rollout_counts"
 # Whether this process has launched K1 (the set-up span ``k1.first_launch``):
 # the span's own, as callers reset ``velocity_rollout_cuda.launches``.
 _first_launch_done = False
@@ -44,12 +47,12 @@ LANES = (1, 2, 4)
 # H100's 132 x 4 schedulers (a constant, so that the choice never depends on
 # the card; the result does not depend on it either).
 _K1_WARPS = 1024
-# What K1's counting build counts (csrc/velocity_rollout.cu, in this order),
-# over all envs and control steps: divisions with a zero numerator, roots of a
-# zero and atan2 of a zero y over a positive x, which its fast step takes
-# inline (csrc/rn_math.cuh); the substeps' sines and cosines it takes without
-# the reduction; divisions, roots, angles and atan2 operands outside the fast
-# step's classes; and env-steps recomputed with the library.
+# What K1's counting build counts (csrc/velocity_rollout_counts.cu, in this
+# order), over all envs and control steps: divisions with a zero numerator,
+# roots of a zero and atan2 of a zero y over a positive x, which its fast step
+# takes inline (csrc/rn_math.cuh); the substeps' sines and cosines it takes
+# without the reduction; divisions, roots, angles and atan2 operands outside
+# the fast step's classes; and env-steps recomputed with the library.
 RN_COUNTS = ("zero_numerator", "zero_radicand", "zero_atan2", "small_angle", "fallback",
              "replayed")
 
@@ -91,23 +94,35 @@ def _pack_consts(consts, ctrl_dt, pyb_dt, speed_limit):
     return (ctypes.c_float * len(vals))(*vals)
 
 
+# The arguments both entry points begin with: in, out, E, the constants and
+# their count, n_substeps, num_steps.
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int]
+
+
 @functools.cache
 def _library():
-    """K1's two C entry points, ``velocity_rollout`` and the counting build's
-    ``velocity_rollout_counted``, built at first use and typed once (the
-    set-up span ``k1.load``: hashing the sources, nvcc where no library
-    matches, loading it)."""
+    """K1's library, whose one C entry point is ``velocity_rollout`` (its
+    ``lanes`` and the stream after ``_ARGS``), built at first use and typed
+    once (the set-up span ``k1.load``: hashing the sources, nvcc where no
+    library matches, loading it)."""
     with _spans.setup_span("k1.load"):
         lib = ctypes.CDLL(_build.build(KERNEL))
-    head = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    fns = {}
-    for name, tail in (("velocity_rollout", []), ("velocity_rollout_counted", [ctypes.c_void_p])):
-        fn = getattr(lib, name)
-        fn.argtypes = head + tail + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+    lib.velocity_rollout.argtypes = _ARGS + [ctypes.c_int, ctypes.c_void_p]
+    lib.velocity_rollout.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _counts_library():
+    """K1's counting build, whose one C entry point is
+    ``velocity_rollout_counted`` (its counts buffer and the stream after
+    ``_ARGS``), built and loaded at the first call of
+    ``velocity_rollout_counts``."""
+    lib = ctypes.CDLL(_build.build(COUNTS_KERNEL))
+    lib.velocity_rollout_counted.argtypes = _ARGS + [ctypes.c_void_p, ctypes.c_void_p]
+    lib.velocity_rollout_counted.restype = ctypes.c_int
+    return lib
 
 
 def _operands(soa, action, n_substeps, num_steps, lanes):
@@ -149,7 +164,7 @@ def velocity_rollout_cuda(consts, ctrl_dt, pyb_dt, n_substeps, speed_limit, num_
     with _spans.span("k1.call"):
         packed, out, E, lanes = _operands(soa, action, n_substeps, num_steps, lanes)
         device = out.device
-        fn = _library()["velocity_rollout"]
+        fn = _library().velocity_rollout
         host = _pack_consts(consts, ctrl_dt, pyb_dt, speed_limit)
         first = not _first_launch_done
         with torch.cuda.device(device):
@@ -168,21 +183,25 @@ velocity_rollout_cuda.launches = 0
 
 
 def velocity_rollout_counts(consts, ctrl_dt, pyb_dt, n_substeps, speed_limit, num_steps,
-                            soa: Dict[str, torch.Tensor], action: Dict[str, torch.Tensor],
-                            lanes=None) -> Dict[str, int]:
+                            soa: Dict[str, torch.Tensor],
+                            action: Dict[str, torch.Tensor]) -> Dict[str, int]:
     """Run K1's counting build over the same operands as
     ``velocity_rollout_cuda`` and return its counts, ``RN_COUNTS``, over all
-    envs and steps (each operation of an env once, whatever ``lanes``; a
-    recomputed step's operations as its first attempt met them). For tests
-    and scripts: the main path launches the build without the counter."""
-    packed, out, E, lanes = _operands(soa, action, n_substeps, num_steps, lanes)
+    envs and steps. It lays each env over one lane, so every operation of an
+    env counts once, as it would at any lane count (the operands are the same
+    bit for bit); a recomputed step's operations count as its fast attempt met
+    them, and ``replayed`` counts env-steps recomputed with the library in
+    warps of 32 envs (a warp recomputes a step for all of its envs). For tests
+    and scripts: its library is built and loaded here, at the first call, and
+    the main path never loads it."""
+    packed, out, E, _ = _operands(soa, action, n_substeps, num_steps, 1)
     counts = torch.zeros(len(RN_COUNTS), dtype=torch.int64, device=out.device)
     host = _pack_consts(consts, ctrl_dt, pyb_dt, speed_limit)
+    fn = _counts_library().velocity_rollout_counted
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = _library()["velocity_rollout_counted"](
-            packed.data_ptr(), out.data_ptr(), E, ctypes.addressof(host), len(host), n_substeps,
-            num_steps, lanes, counts.data_ptr(), stream)
+        rc = fn(packed.data_ptr(), out.data_ptr(), E, ctypes.addressof(host), len(host),
+                n_substeps, num_steps, counts.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"K1 (counting build) launch failed: cudaError {rc}")
     return dict(zip(RN_COUNTS, counts.tolist()))

@@ -7,10 +7,9 @@ state-threading step fenced on the device it ran on, a realtime-factor
 report with the reference's semantics, and the port's spans.
 
 The spans live in the leaf module ``_spans.py`` and are exported here:
-``span``, ``setup_span``, ``spans``, ``setup_spans`` and ``OFF``; beside
-them ``velocity_rollout_counts``, the counts of K1's counting build: zero
-operands taken inline and steps recomputed with the library's division and
-root (``ops/velocity_rollout.py``).
+``span``, ``setup_span``, ``spans``, ``setup_spans`` and ``OFF``. K1's
+counting build is a test instrument of its kernel, not of the runtime: its
+counts come from ``ops/velocity_rollout.velocity_rollout_counts``.
 """
 
 import contextlib
@@ -26,10 +25,6 @@ from gym_pybullet_drones_tpu_torch._spans import (  # noqa: F401
     setup_spans,
     span,
     spans,
-)
-from gym_pybullet_drones_tpu_torch.ops.velocity_rollout import (  # noqa: F401
-    RN_COUNTS,
-    velocity_rollout_counts,
 )
 
 

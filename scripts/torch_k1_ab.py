@@ -19,7 +19,10 @@ with one, at each lane count (or the tree's only layout).
 traffic (``benchmark/traffic.FormationHeadings``, seed ``SEED``), one command
 for all envs of a call, CUDA events (median of 5 launches after a warm-up).
 Where the tree has K1's counting build (``velocity_rollout_counts``), also its
-counts for one call of each command, as totals and per env and control step.
+counts for one call of each command, as totals and per env and control step
+(the build lays each env over one lane; the counts of operations are the same
+at every lane count, and ``replayed`` counts env-steps recomputed in warps of
+32 envs).
 
 ``--fmad`` also builds K1 with FMA contraction (``-fmad=true``) and prints
 its largest gap per column to the plain version at T = 8 and T = 240 (E =

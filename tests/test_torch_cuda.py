@@ -11,6 +11,10 @@ pytest workers collect the same tests)."""
 
 import importlib
 import json
+import os
+import re
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -18,6 +22,7 @@ import pytest
 import torch
 
 from gym_pybullet_drones_tpu_torch.envs import base as tbase
+from gym_pybullet_drones_tpu_torch.ops import _build
 from gym_pybullet_drones_tpu_torch.ops import _pairs as tpairs
 from gym_pybullet_drones_tpu_torch.ops import collide_pairs as tco
 from gym_pybullet_drones_tpu_torch.ops import downwash_pairs as tdw
@@ -126,35 +131,35 @@ def test_k1_equals_plain_version_bit_for_bit_on_formation_commands(cuda, E, kind
 @pytest.mark.parametrize("kind", ["hover", "compass", "axis"])
 @pytest.mark.parametrize("E", [4096, 1004])
 def test_k1_counting_build_sees_zeros_taken_inline_and_no_fallback(cuda, E, kind):
-    """K1's counting build counts each operation of an env once, whatever
-    the lanes: no operand of these commands lies outside the fast step's
-    classes, so no step is recomputed with the library, every substep takes
-    its sine and cosine without the reduction, and on hover (zero body rates,
-    zero lateral thrust, an identity quaternion) the fast step takes zero
+    """K1's counting build (one lane an env) counts each operation of an env
+    once: no operand of these commands lies outside the fast step's classes,
+    so no step is recomputed with the library, every substep takes its sine
+    and cosine without the reduction, and on hover (zero body rates, zero
+    lateral thrust, an identity quaternion) the fast step takes zero
     numerators, radicands and atan2 arguments every step."""
     args, soa, _ = _case(cuda, E)
     act = _command(cuda, E, kind)
-    counts = [profiling.velocity_rollout_counts(*args, 240, soa, act, lanes=L) for L in tro.LANES]
-    assert all(c == counts[0] for c in counts), counts
-    assert set(counts[0]) == set(tro.RN_COUNTS)
-    assert counts[0]["fallback"] == 0 and counts[0]["replayed"] == 0, counts[0]
-    assert counts[0]["small_angle"] == args[3] * E * 240, counts[0]  # args[3]: 5 substeps
+    counts = tro.velocity_rollout_counts(*args, 240, soa, act)
+    assert set(counts) == set(tro.RN_COUNTS)
+    assert counts["fallback"] == 0 and counts["replayed"] == 0, counts
+    assert counts["small_angle"] == args[3] * E * 240, counts  # args[3]: 5 substeps
     if kind == "hover":
         for k in ("zero_numerator", "zero_radicand", "zero_atan2"):
-            assert counts[0][k] >= E * 240, counts[0]
+            assert counts[k] >= E * 240, counts
 
 
 @pytest.mark.parametrize("lanes", tro.LANES)
 def test_k1_recomputes_a_step_with_an_operand_outside_the_fast_classes(cuda, lanes):
     """A quaternion component of 1e-35 (below 2^-102, where the library's
     division check fails) in a few envs: their warps recompute those steps
-    with the library, and the state equals the plain version's bit for bit."""
+    with the library (counted at one lane an env), and the state equals the
+    plain version's bit for bit at every lane count."""
     E = 1004
     args, soa, _ = _case(cuda, E)
     soa = dict(soa, qx=soa["qx"].clone())
     soa["qx"][::97] = 1e-35
     act = _command(cuda, E, "hover")
-    counts = profiling.velocity_rollout_counts(*args, 48, soa, act, lanes=lanes)
+    counts = tro.velocity_rollout_counts(*args, 48, soa, act)
     assert counts["fallback"] > 0 and counts["replayed"] > 0, counts
     got = tro.velocity_rollout_cuda(*args, 48, soa, act, lanes=lanes)
     want = tro.velocity_rollout_plain(*args, 48, soa, act)
@@ -172,8 +177,8 @@ def test_k1_takes_the_angles_outside_the_small_class_to_the_library(cuda, case, 
     those steps with the library. ``yaw_near_pi``: every env's yaw within
     1e-3 of +-pi through the quaternion, where sincos_rn's reduction takes
     the quadrants 2 and -2 and atan2_rn's x is negative: no step leaves the
-    fast classes. Either way the state equals the plain version's bit for
-    bit."""
+    fast classes (counted at one lane an env). Either way the state equals
+    the plain version's bit for bit at every lane count."""
     E = 1004
     args, soa, _ = _case(cuda, E)
     soa = dict(soa)
@@ -188,7 +193,7 @@ def test_k1_takes_the_angles_outside_the_small_class_to_the_library(cuda, case, 
         soa["qw"] = torch.as_tensor(np.cos(yaw / 2), dtype=torch.float32, device=cuda)
         soa["lrz"] = torch.as_tensor(yaw, dtype=torch.float32, device=cuda)  # the last yaw
         act = _command(cuda, E, "compass")
-    counts = profiling.velocity_rollout_counts(*args, 48, soa, act, lanes=lanes)
+    counts = tro.velocity_rollout_counts(*args, 48, soa, act)
     if case == "spin":
         assert counts["fallback"] > 0 and counts["replayed"] > 0, counts
     else:
@@ -269,6 +274,93 @@ def test_k1_rejects_what_it_does_not_take(cuda):
         tro.velocity_rollout_cuda(*args, 2, soa, {k: v.cpu() for k, v in act.items()})
     with pytest.raises(ValueError, match="lanes"):
         tro.velocity_rollout_cuda(*args, 2, soa, act, lanes=3)
+
+
+# A fresh process with an empty build directory: builds and runs a K1 rollout,
+# reports what it built, loaded and recorded, then runs the counting build.
+_K1_LIBRARIES = r"""
+import json, os, sys
+sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+import torch
+import test_torch_cuda as t
+from gym_pybullet_drones_tpu_torch.ops import _build
+
+_build.BUILD_DIR = sys.argv[1]
+dev = torch.device("cuda")
+args, soa, act = t._case(dev, 64)
+t.tro.make_velocity_rollout(*args, 8, device=dev)(soa, act)
+torch.cuda.synchronize()
+
+
+def seen():
+    with open("/proc/self/maps") as fh:
+        maps = fh.read()
+    return {"built": sorted(os.listdir(_build.BUILD_DIR)),
+            "counts_loaded": t.tro._counts_library.cache_info().currsize,
+            "counts_mapped": t.tro.COUNTS_KERNEL in maps,
+            "spans": [s[0] for s in t.profiling.setup_spans() if s[0].startswith("nvcc.")]}
+
+
+lib = t.tro._library()
+out = {"lib": lib._name, "counted_entry": hasattr(lib, "velocity_rollout_counted"),
+       "rollout": seen()}
+t.tro.velocity_rollout_counts(*args, 8, soa, act)
+out["counts_lib"] = t.tro._counts_library()._name
+out["counted"] = seen()
+print(json.dumps(out))
+"""
+
+
+def _sass_ops(lib):
+    """{function: [opcode]} of a built library, from ``cuobjdump -sass``."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"^\s*Function\s*:\s*(\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"^\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if m and name is not None:
+            words = m.group(1).split()
+            funcs[name].append((words[1] if words[0].startswith("@") else words[0]).split(".")[0])
+    return funcs
+
+
+def test_k1_cells_library_holds_three_kernels_and_no_counter(cuda, tmp_path):
+    """The library that ``make_velocity_rollout`` builds and loads has the one
+    entry point ``velocity_rollout`` and exactly the three K1 kernels (L = 1,
+    2, 4) with no atomic in their SASS; building and running the rollout
+    leaves the counting build unbuilt, unloaded and without an
+    ``nvcc.velocity_rollout_counts`` span. Run in a fresh process with an
+    empty build directory, so that no earlier test has built or loaded it;
+    the counting build run there after it is the control: it is built then,
+    and its SASS holds atomics."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _K1_LIBRARIES, str(tmp_path / "build")],
+                          cwd=repo, capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert not out["counted_entry"], out
+    rollout = out["rollout"]
+    assert not any(f.startswith(tro.COUNTS_KERNEL) for f in rollout["built"]), rollout
+    assert rollout["counts_loaded"] == 0 and not rollout["counts_mapped"], rollout
+    assert rollout["spans"] == [f"nvcc.{tro.KERNEL}"], rollout
+    counted = out["counted"]
+    assert any(f.startswith(tro.COUNTS_KERNEL) for f in counted["built"]), counted
+    assert counted["counts_loaded"] == 1 and counted["counts_mapped"], counted
+    assert counted["spans"] == [f"nvcc.{tro.KERNEL}", f"nvcc.{tro.COUNTS_KERNEL}"], counted
+
+    atomic = re.compile(r"(ATOM|RED)[GS]?")
+    funcs = _sass_ops(out["lib"])
+    lanes = [re.search(r"velocity_rollout_kernelILi(\d)E", f) for f in funcs]
+    assert all(lanes) and sorted(m.group(1) for m in lanes) == ["1", "2", "4"], list(funcs)
+    assert not [op for ops in funcs.values() for op in ops if atomic.fullmatch(op)]
+    counting = _sass_ops(out["counts_lib"])
+    assert [op for ops in counting.values() for op in ops if atomic.fullmatch(op)], list(counting)
 
 
 # ---------------- K2, K4, K5 (csrc/wake_pair_kernels.cu) ----------------

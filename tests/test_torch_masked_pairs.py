@@ -291,31 +291,44 @@ def test_slice_gates_read_both_forms_alike():
 def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
     """A built library is named by a hash of its source, of every csrc/ file
     it includes and of its own flags: a change to pair_terms.cuh renames (so
-    rebuilds) the two pair kernel libraries and leaves K1's and K7's alone,
-    and a change to one source's flags renames that library alone.
-    K2/K4/K5's and K3/K6's sources contract multiply-adds, K1's and K7's
+    rebuilds) the two pair kernel libraries and leaves K1's two (the cells'
+    and the counting build) and K7's alone; a change to K1's shared header
+    velocity_rollout.cuh renames both K1 libraries and neither the pair
+    libraries nor K7's; and a change to one source's flags renames that
+    library alone. K2/K4/K5's and K3/K6's sources contract multiply-adds,
+    K1's, its counting build's (with K1's very flags) and K7's
     (render_views) do not. Needs no compiler."""
     import os
     import shutil
 
     from gym_pybullet_drones_tpu_torch.ops import _build
+    from gym_pybullet_drones_tpu_torch.ops import velocity_rollout as tro
 
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", str(csrc))
-    names = ("velocity_rollout", _pairs.UNIT_KERNEL, _pairs.MASKED_KERNEL, "render_views")
-    pairs = names[1:3]
+    names = (tro.KERNEL, tro.COUNTS_KERNEL, _pairs.UNIT_KERNEL, _pairs.MASKED_KERNEL,
+             "render_views")
+    k1, pairs = names[:2], names[2:4]
     for name in pairs:
         assert [os.path.basename(p) for p in _build._sources(str(csrc / f"{name}.cu"))] == [
             f"{name}.cu", "pair_terms.cuh"]
+    for name in k1:
+        assert [os.path.basename(p) for p in _build._sources(str(csrc / f"{name}.cu"))] == [
+            f"{name}.cu", "velocity_rollout.cuh", "rn_math.cuh"]
     before = [_build._paths(n)[1] for n in names]
+    with open(csrc / "velocity_rollout.cuh", "a") as fh:
+        fh.write("// changed\n")
+    shared = [_build._paths(n)[1] for n in names]
+    assert [a != b for a, b in zip(shared, before)] == [n in k1 for n in names]
     with open(csrc / "pair_terms.cuh", "a") as fh:
         fh.write("// changed\n")
     after = [_build._paths(n)[1] for n in names]
-    assert [a != b for a, b in zip(after, before)] == [n in pairs for n in names]
+    assert [a != b for a, b in zip(after, shared)] == [n in pairs for n in names]
     flags = _build.NVCC_FLAGS
     assert all("-fmad=true" in flags[n] for n in pairs)
     assert all("-fmad=false" in flags[n] for n in names if n not in pairs)
+    assert flags[tro.COUNTS_KERNEL] == flags[tro.KERNEL]
     assert set(flags) == set(names)
     for i, name in enumerate(names):
         with monkeypatch.context() as m:

@@ -139,8 +139,8 @@ def test_soa_round_trip_and_step_count():
 
 
 def test_consts_pack_matches_the_kernel_struct():
-    """The host packing has the 60 floats of csrc/velocity_rollout.cu's
-    VelConsts, with the two host-formed products in double."""
+    """The host packing has the 60 floats of K1's VelConsts
+    (csrc/velocity_rollout.cuh), with the two host-formed products in double."""
     _, tcfg, _, _, tp, tcp, sl = _setup("float32")
     c = tsoa.soa_consts(tcp, tp)
     packed = list(tro._pack_consts(c, tcfg.ctrl_timestep, tcfg.pyb_timestep, sl))
