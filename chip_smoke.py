@@ -17,7 +17,7 @@ Phases, one or more lines each:
   3. hold K1 against its plain PyTorch version on the card at E = 4096
      (batch_reset state, formation actions): T = 8 and T = 240 (5 s) at atol
      1e-5 on every column, and at T = 240 finiteness and the ground clamp;
-     at T = 8 bit for bit at every lane count the launcher can choose;
+     at T = 8 bit for bit;
   4. the main path through the user entry points, launch counts reset just
      before and read just after: batch_reset -> soa_from_state ->
      make_velocity_rollout (K1) -> soa_to_state -> compute_obs, at E = 4096
@@ -26,8 +26,7 @@ Phases, one or more lines each:
   5. K1's time with CUDA events (E = 4096, T = 4800, after a warm-up, 5
      repeats), the plain version's time for T = 480 (a tenth of the depth:
      it is launch-bound and would take a minute), and K1's bound; the
-     scaling line (E = 32, 4096, 16384, 65536 at the launcher's lanes, T =
-     4800) and E = 4096 at every lane count;
+     scaling line (E = 32, 4096, 16384, 65536, T = 4800);
   6. the pair kernels K2, K4, K5 against their plain versions on the card,
      on tests/test_soa.py's cloud scaled to N = 4096 and 16384 with
      overlapping pairs: square with the z-sorted culls off and on, K2 and K4
@@ -329,8 +328,6 @@ from gym_pybullet_drones_tpu_torch.ops.swarm_soa import (
 )
 from gym_pybullet_drones_tpu_torch.ops.velocity_rollout import (
     KERNEL,
-    LANES,
-    choose_lanes,
     make_velocity_rollout,
     velocity_rollout_cuda,
     velocity_rollout_plain,
@@ -3887,19 +3884,14 @@ def main():
     max_abs_err = max(*errs.values(), *long_errs.values())
     if not low >= np.float32(z_min):
         fail(f"a drone is below the ground clamp: pz {low} < {z_min}")
-    # Bit for bit at every lane count: each lane of an env's group runs the
-    # plain version's operations in its order.
-    unequal = []
-    for lanes in LANES:
-        at = velocity_rollout_cuda(*args, T_SHORT, soa0, action, lanes=lanes)
-        unequal += [f"lanes {lanes}: {k}" for k in SOA_KEYS if not torch.equal(at[k], want[k])]
-    torch.cuda.synchronize()
+    # Bit for bit: an env's lane runs the plain version's operations in their
+    # order.
+    unequal = [k for k in SOA_KEYS if not torch.equal(got[k], want[k])]
     if unequal:
         fail("K1 differs from its plain version bit for bit at T=8: " + "; ".join(unequal))
-    print(f"[3] K1 vs plain, E={E} T={T_SHORT}: equal bit for bit at every lane count {LANES} "
-          f"(the launcher's choice at E={E}: {choose_lanes(E)})", flush=True)
-    if velocity_rollout_cuda.launches - before != 2 + len(LANES):
-        fail(f"K1's launch count did not rise by the {2 + len(LANES)} launches of this phase")
+    print(f"[3] K1 vs plain, E={E} T={T_SHORT}: equal bit for bit", flush=True)
+    if velocity_rollout_cuda.launches - before != 2:
+        fail("K1's launch count did not rise by the 2 launches of this phase")
 
     # ---------------- 4. the main path ----------------
     velocity_rollout_cuda.launches = 0
@@ -3977,23 +3969,15 @@ def main():
           "wrapper's kernels and memsets)", flush=True)
     print(f"[5] plain version, same E, T={T_PLAIN} (a tenth of the kernel's depth), one run: "
           f"{p_ms:.1f} ms ({E * T_PLAIN / (p_ms / 1e3):.6g} env-steps/s)", flush=True)
-    # The scaling line: a warp alone (E = 32) against fuller grids, at the
-    # launcher's lanes, and E = 4096 at every lane count.
+    # The scaling line: a warp alone (E = 32) against fuller grids.
     scaling = {}
     for n in K1_SIZES:
         s_n, a_n = soa_from_state(batch_reset(cfg, params, n, device=dev)), formation_actions(n, dev)
         velocity_rollout_cuda(*args, 48, s_n, a_n)
         scaling[n] = statistics.median(
             event_ms(lambda: velocity_rollout_cuda(*args, T_TIME, s_n, a_n), 3))
-    by_lanes = {}
-    for lanes in LANES:
-        velocity_rollout_cuda(*args, 48, soa0, action, lanes=lanes)
-        by_lanes[lanes] = statistics.median(
-            event_ms(lambda: velocity_rollout_cuda(*args, T_TIME, soa0, action, lanes=lanes), 3))
-    print(f"[5] K1 scaling line, T={T_TIME}, ms at the launcher's lanes: "
-          + ", ".join(f"E={n} (lanes {choose_lanes(n)}) {scaling[n]:.4f}" for n in K1_SIZES)
-          + f"; E={E} by lanes: " + ", ".join(f"{L}: {t:.4f}" for L, t in by_lanes.items()),
-          flush=True)
+    print(f"[5] K1 scaling line, T={T_TIME}, ms: "
+          + ", ".join(f"E={n} {scaling[n]:.4f}" for n in K1_SIZES), flush=True)
     print(f"[5] bound: {per_env} ops per env for T={T_TIME} (ops per piece: "
           f"{json.dumps(parts)}; FMA counts 2 in the peak), {flops:.4g} ops / {PEAK_FP32_FLOPS:.3g} = {flops / PEAK_FP32_FLOPS * 1e3:.4g} ms; "
           f"{nbytes} bytes / {PEAK_BYTES_PER_S:.3g} = {nbytes / PEAK_BYTES_PER_S * 1e3:.4g} ms; "
@@ -4045,7 +4029,7 @@ def main():
         "replaces": "gym_pybullet_drones_tpu/ops/velocity_pallas.py:74",
         "launches": launches[KERNEL], "max_abs_err": max_abs_err,
         "ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms, "plain_steps": T_PLAIN,
-        "lanes": choose_lanes(E), "one_warp_ms": scaling[32], "bound_ms": bound_ms,
+        "one_warp_ms": scaling[32], "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
     }]
     for pid in PAIRS:

@@ -1,5 +1,4 @@
-// K1: whole VelocityAviary rollout chunks, each env laid over a group of L
-// lanes of a warp.
+// K1: whole VelocityAviary rollout chunks, one lane of a warp an env.
 //
 // Replaces the TPU kernel `make_velocity_rollout_pallas` in
 // gym_pybullet_drones_tpu/ops/velocity_pallas.py (its inner `kernel`). It
@@ -17,32 +16,27 @@
 // dependent instructions), so a warp alone takes as long as 512 warps side by
 // side (the scaling line in PERF.md). The time is the chain's latency.
 //
-// Design. The env's state stays in registers for the whole time loop, and
-// nothing passes through device memory between steps. An env is laid over a
-// group of L consecutive lanes (L = 1, 2 or 4, chosen by the launcher from E
-// so that the grid fills the schedulers). Every lane of a group holds the
-// whole state and runs the serial parts of the step itself, on the same
-// inputs with the same operations, so the lanes agree bit for bit. Where the
-// step has K independent operations of one kind on different data (the
-// stages below), lane j evaluates operation j (and j + L, ... where K > L),
-// one instruction stream for the warp, and __shfl_sync brings each result to
-// every lane of the group, exactly. A stage thus costs one operation's
-// latency and a shuffle in place of K latencies:
-//   DSLPID:  atan2f of roll and yaw; the divisions of the thrust and of the
-//            three rate errors; the square roots of the thrust and of |t|;
-//            the divisions of the thrust PWM and of z_des; of y_des;
-//   substep: the three accelerations' divisions by m and sin(theta) / |w|;
-//            the quaternion's four divisions by its norm.
-// Each lane evaluates exactly the operations of the plain version in its
-// order, so the result is the same for every L. Bit-exact rewrites that
-// shorten the chain further: sincosf in place of sinf and cosf of one angle
-// (equal bit for bit to both on every float32, checked on the H100), x * 0.5f
-// for x / 2.0f (exact), NaN-propagating max.NaN / min.NaN in the clamps (one
-// instruction each, equal to the isnan test with fminf / fmaxf on every
-// number), and selects for the branches of the quaternion update and the
-// ground clamp. No stage is wider than four operations, so eight lanes gain
-// nothing over four (measured slower at every E): the launcher offers 1, 2
-// and 4.
+// Design. One lane runs one env, and the env's state stays in its registers
+// for the whole time loop: nothing passes through device memory between
+// steps. The lane evaluates exactly the operations of the plain version in
+// their order. A step's independent operations of one kind (the atan2 of roll
+// and yaw; the divisions of the thrust and of the three rate errors; the
+// square roots of the thrust and of |t|; the divisions of the thrust PWM, of
+// z_des and of y_des; the substep's accelerations, sin(theta) / |w| and the
+// quaternion's four divisions by its norm) overlap by instruction-level
+// parallelism: the sequences of csrc/rn_math.cuh have no branch, and
+// divisions by one divisor share its reciprocal. Spreading an env over 2 or
+// 4 lanes, each stage's operations over the lanes with a tree of selects and
+// a shuffle back, was faster while each division, root and atan2f was the
+// library's checked, branching sequence; with the branch-free sequences one
+// lane an env is as fast or faster at every E measured, from one warp to
+// 16,384 envs (PERF.md, the lane line), and the select trees and shuffles
+// are gone with the lanes. Bit-exact rewrites that shorten the chain
+// further: sincosf in place of sinf and cosf of one angle (equal bit for bit
+// to both on every float32, checked on the H100), x * 0.5f for x / 2.0f
+// (exact), NaN-propagating max.NaN / min.NaN in the clamps (one instruction
+// each, equal to the isnan test with fminf / fmaxf on every number), and
+// selects for the branches of the quaternion update and the ground clamp.
 //
 // Division, root and trigonometry without the library's checks. The
 // library's `a / b` and `sqrtf` check their operands and send a zero
@@ -79,62 +73,43 @@
 // double.
 //
 // Layout. `in` is (30, E) float32: the 26 state rows in SOA_KEYS order, then
-// the action rows ax, ay, az, amag. `out` is (26, E). The lanes of group g
-// read in[k * E + g] (one broadcast load), and lane j stores the rows k with
-// k % L == j. Groups past the ragged edge compute on the last env and store
-// nothing, so that every lane of a warp takes part in the shuffles.
+// the action rows ax, ay, az, amag. `out` is (26, E). Lane e reads
+// in[k * E + e] and writes out[k * E + e]. Lanes past the ragged edge compute
+// on the last env and store nothing, so that every lane of a warp takes part
+// in the guard's vote.
 //
 // Interface: plain C, loaded with ctypes. The launch goes on the caller's
 // stream; the function returns cudaGetLastError().
 //
-// Sources. This file is the library the cells load: the kernel at L = 1, 2
-// and 4 with FastMath, and its one entry point `velocity_rollout`; it holds no
-// counter and no atomic. The state, the step, the time loop, the guard and
-// the library recompute are in csrc/velocity_rollout.cuh, shared with K1's
-// counting build (csrc/velocity_rollout_counts.cu), a library of its own that
-// only tests and scripts build and load.
+// Sources. This file is the library the cells load: the kernel with FastMath
+// and its one entry point `velocity_rollout`; it holds no counter and no
+// atomic. The state, the step, the time loop, the guard and the library
+// recompute are in csrc/velocity_rollout.cuh, shared with K1's counting build
+// (csrc/velocity_rollout_counts.cu), a library of its own that only tests and
+// scripts build and load.
 
 #include "velocity_rollout.cuh"
 
 namespace {
 
-template <int L>
 __global__ void __launch_bounds__(kBlock)
 velocity_rollout_kernel(const float* __restrict__ in, float* __restrict__ out, long long E,
                         VelConsts c, int n_substeps, int num_steps) {
   FastMath fast{step_guard(c)};
-  rollout_lane<L>(in, out, E, c, n_substeps, num_steps, fast);
-}
-
-template <int L>
-cudaError_t launch(const float* in, float* out, long long E, const VelConsts& c, int n_substeps,
-                   int num_steps, cudaStream_t st) {
-  const long long blocks = (E * L + kBlock - 1) / kBlock;
-  velocity_rollout_kernel<L><<<(unsigned int)blocks, kBlock, 0, st>>>(in, out, E, c, n_substeps,
-                                                                       num_steps);
-  return cudaGetLastError();
+  rollout_lane(in, out, E, c, n_substeps, num_steps, fast);
 }
 
 }  // namespace
 
-// K1: out (26, E) = `num_steps` control steps from in (30, E), each env over
-// `lanes` lanes (1, 2 or 4).
+// K1: out (26, E) = `num_steps` control steps from in (30, E).
 extern "C" int velocity_rollout(const void* in, void* out, long long E, const void* consts,
-                                int n_consts, int n_substeps, int num_steps, int lanes,
-                                void* stream) {
-  if (!launch_args_ok(E, n_consts, n_substeps, num_steps, lanes)) {
-    return (int)cudaErrorInvalidValue;
-  }
+                                int n_consts, int n_substeps, int num_steps, void* stream) {
+  if (!launch_args_ok(E, n_consts, n_substeps, num_steps)) return (int)cudaErrorInvalidValue;
   if (E == 0) return (int)cudaSuccess;
   VelConsts c;
   memcpy(&c, consts, sizeof(VelConsts));
-  const auto* i = (const float*)in;
-  auto* o = (float*)out;
-  const auto st = (cudaStream_t)stream;
-  switch (lanes) {
-    case 1: return (int)launch<1>(i, o, E, c, n_substeps, num_steps, st);
-    case 2: return (int)launch<2>(i, o, E, c, n_substeps, num_steps, st);
-    case 4: return (int)launch<4>(i, o, E, c, n_substeps, num_steps, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const long long blocks = (E + kBlock - 1) / kBlock;
+  velocity_rollout_kernel<<<(unsigned int)blocks, kBlock, 0, (cudaStream_t)stream>>>(
+      (const float*)in, (float*)out, E, c, n_substeps, num_steps);
+  return (int)cudaGetLastError();
 }

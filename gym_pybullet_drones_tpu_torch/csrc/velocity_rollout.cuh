@@ -1,11 +1,10 @@
 // K1's step and time loop, shared by its two libraries: the cells' library
-// (csrc/velocity_rollout.cu: the kernel at L = 1, 2 and 4 lanes an env, with
-// the fast step's arithmetic FastMath) and the counting build
-// (csrc/velocity_rollout_counts.cu: one lane an env, with a FastMath that also
-// counts its operands). The design, the arithmetic and the layout are
-// described in csrc/velocity_rollout.cu; this file holds one copy of the
-// constants, the state, the lanes' group, the control step and the time loop
-// with its guard and library recompute.
+// (csrc/velocity_rollout.cu: the kernel with the fast step's arithmetic
+// FastMath) and the counting build (csrc/velocity_rollout_counts.cu: a
+// FastMath that also counts its operands). The design, the arithmetic and the
+// layout are described in csrc/velocity_rollout.cu; this file holds one copy
+// of the constants, the state, the control step and the time loop with its
+// guard and library recompute.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,10 +38,10 @@ constexpr int kNumConsts = sizeof(VelConsts) / sizeof(float);
 static_assert(kNumConsts == 60, "VelConsts layout changed: update the host packing");
 
 // Whether a launcher's arguments are in range: the constants' count, sizes
-// that are not negative, and a grid of E * lanes lanes that an int indexes.
-inline bool launch_args_ok(long long E, int n_consts, int n_substeps, int num_steps, int lanes) {
+// that are not negative, and a grid of E lanes that an int indexes.
+inline bool launch_args_ok(long long E, int n_consts, int n_substeps, int num_steps) {
   return n_consts == kNumConsts && E >= 0 && n_substeps >= 0 && num_steps >= 0 &&
-         E * lanes < (1LL << 31);
+         E < (1LL << 31);
 }
 
 // One env's state, the 26 rows of SOA_KEYS.
@@ -119,63 +118,12 @@ __device__ __forceinline__ RnGuard step_guard(const VelConsts& c) {
                  max_nan(max_nan(c.four_kf_c, c.ctrl_dt), max_nan(c.scale, c.m)));
 }
 
-__host__ __device__ constexpr int log2_of(int x) { return x <= 1 ? 0 : 1 + log2_of(x / 2); }
-
-// The L lanes of one env. j: this lane's rank in the group.
-template <int L>
-struct Group {
-  int j;
-
-  // a[i] for i = r L + j, the operand of this lane in round r (a tree of
-  // selects on the bits of j; indices past K take the last operand). Every
-  // index is a constant once the loops unroll, so v stays in registers.
-  template <int K>
-  __device__ __forceinline__ float operand(const float (&a)[K], int r) const {
-    constexpr int kLevels = log2_of(L);
-    float v[L];
-#pragma unroll
-    for (int m = 0; m < L; ++m) v[m] = a[min(r * L + m, K - 1)];
-#pragma unroll
-    for (int level = 0; level < kLevels; ++level) {
-      const int w = L >> (level + 1);
-#pragma unroll
-      for (int m = 0; m < L / 2; ++m) {
-        if (m < w) v[m] = (j & w) ? v[m + w] : v[m];
-      }
-    }
-    return v[0];
-  }
-
-  // y[i] = f(a[i], b[i]) for the K independent operations i of one stage, on
-  // every lane of the group: lane j evaluates i = j, j + L, ... (past K it
-  // repeats the last operation) and the results travel by shuffle, bit for
-  // bit.
-  template <int K, class F>
-  __device__ __forceinline__ void map(F f, const float (&a)[K], const float (&b)[K],
-                                      float (&y)[K]) const {
-    constexpr int kRounds = (K + L - 1) / L;
-    float part[kRounds];
-#pragma unroll
-    for (int r = 0; r < kRounds; ++r) part[r] = f(operand<K>(a, r), operand<K>(b, r));
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      if constexpr (L == 1) {
-        y[i] = part[i];
-      } else {
-        y[i] = __shfl_sync(kAll, part[i / L], i % L, L);
-      }
-    }
-  }
-};
-
 // One control step of env state s with the arithmetic of M: the DSLPID
 // velocity pipeline, then n_substeps Physics.PYB substeps. (tvx, tvy, tvz):
 // the velocity target.
-template <int L, class M>
-__device__ __forceinline__ void control_step(State& s, const VelConsts& c, const Group<L>& g,
-                                             float tvx, float tvy, float tvz, int n_substeps,
-                                             M& m) {
-  const auto div = [&](float a, float b) { return m.div(a, b); };
+template <class M>
+__device__ __forceinline__ void control_step(State& s, const VelConsts& c, float tvx, float tvy,
+                                             float tvz, int n_substeps, M& m) {
   // ---------------- DSLPID, velocity pipeline ----------------
   {
     const float xx = s.qx * s.qx, yy = s.qy * s.qy, zz = s.qz * s.qz;
@@ -185,10 +133,8 @@ __device__ __forceinline__ void control_step(State& s, const VelConsts& c, const
     const float r10 = 2.0f * (xy + wzq), r11 = 1.0f - 2.0f * (xx + zz), r12 = 2.0f * (yz - wxq);
     const float r20 = 2.0f * (xz - wyq), r21 = 2.0f * (yz + wxq), r22 = 1.0f - 2.0f * (xx + yy);
 
-    float rpy[2];  // roll, yaw
-    g.template map<2>([&](float y, float x) { return m.arctan(y, x); }, {r21, r10}, {r22, r00},
-                      rpy);
-    const float roll = rpy[0], yaw = rpy[1];
+    const float roll = m.arctan(r21, r22);
+    const float yaw = m.arctan(r10, r00);
     const float pitch = asinf(clip(-r20, -1.0f, 1.0f));
 
     // pos_e == 0 (target_pos = cur_pos): integrals clipped but unchanged,
@@ -205,26 +151,23 @@ __device__ __forceinline__ void control_step(State& s, const VelConsts& c, const
     m.sincos(yaw, &syaw, &cyaw);
     // scalar_thrust / 4 kf and the rate errors -(rpy - last rpy) / ctrl_dt.
     const float cur[3] = {roll, pitch, yaw};
-    float d1[4];
-    g.template map<4>(div, {scalar_thrust, -(roll - s.lr[0]), -(pitch - s.lr[1]), -(yaw - s.lr[2])},
-                      {c.four_kf_c, c.ctrl_dt, c.ctrl_dt, c.ctrl_dt}, d1);
-    float roots[2];  // sqrt(thrust / 4 kf), |t|
-    g.template map<2>([&](float x, float) { return m.root(x); },
-                      {d1[0], ttx * ttx + tty * tty + ttz * ttz}, {0.0f, 0.0f}, roots);
-    const float tnorm = roots[1];
+    const float thrust_kf = m.div(scalar_thrust, c.four_kf_c);
+    const float rr_e[3] = {m.div(-(roll - s.lr[0]), c.ctrl_dt),
+                           m.div(-(pitch - s.lr[1]), c.ctrl_dt),
+                           m.div(-(yaw - s.lr[2]), c.ctrl_dt)};
+    const float thrust_root = m.root(thrust_kf);
+    const float tnorm = m.root(ttx * ttx + tty * tty + ttz * ttz);
     m.divisor(tnorm);
-    float d2[4];  // the thrust PWM and z_des = t / |t|
-    g.template map<4>(div, {roots[0] - c.cnst, ttx, tty, ttz}, {c.scale, tnorm, tnorm, tnorm}, d2);
-    const float thrust_pwm = d2[0], zdx = d2[1], zdy = d2[2], zdz = d2[3];
+    // the thrust PWM and z_des = t / |t|
+    const float thrust_pwm = m.div(thrust_root - c.cnst, c.scale);
+    const float zdx = m.div(ttx, tnorm), zdy = m.div(tty, tnorm), zdz = m.div(ttz, tnorm);
     // y_des = normalize(z_des x x_c), x_c = (cos yaw, sin yaw, 0)
     const float yx0 = zdy * 0.0f - zdz * syaw;
     const float yy0 = zdz * cyaw - zdx * 0.0f;
     const float yz0 = zdx * syaw - zdy * cyaw;
     const float yn = m.root(yx0 * yx0 + yy0 * yy0 + yz0 * yz0);
     m.divisor(yn);
-    float yd[3];
-    g.template map<3>(div, {yx0, yy0, yz0}, {yn, yn, yn}, yd);
-    const float yx = yd[0], yyd = yd[1], yzd = yd[2];
+    const float yx = m.div(yx0, yn), yyd = m.div(yy0, yn), yzd = m.div(yz0, yn);
     // x_des = y_des x z_des
     const float xxd = yyd * zdz - yzd * zdy;
     const float xyd = yzd * zdx - yx * zdz;
@@ -238,10 +181,9 @@ __device__ __forceinline__ void control_step(State& s, const VelConsts& c, const
     float tq[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      const float rr_e = d1[1 + k];
       s.ir[k] = clip(s.ir[k] - rot_e[k] * c.ctrl_dt, -1500.0f, 1500.0f);
       if (k < 2) s.ir[k] = clip(s.ir[k], -1.0f, 1.0f);
-      tq[k] = clip(-c.p_tor[k] * rot_e[k] + c.d_tor[k] * rr_e + c.i_tor[k] * s.ir[k],
+      tq[k] = clip(-c.p_tor[k] * rot_e[k] + c.d_tor[k] * rr_e[k] + c.i_tor[k] * s.ir[k],
                    -3200.0f, 3200.0f);
       s.lr[k] = cur[k];
     }
@@ -298,10 +240,8 @@ __device__ __forceinline__ void control_step(State& s, const VelConsts& c, const
     const float theta = sn * c.pyb_dt * 0.5f;
     float sin_t, ct;
     m.sincos_small(theta, &sin_t, &ct);
-    // The accelerations' divisions by m, and sin(theta) / |w|.
-    float d[4];
-    g.template map<4>(div, {r02 * fsum, r12 * fsum, r22 * fsum, sin_t}, {c.m, c.m, c.m, sn}, d);
-    const float axw = d[0], ayw = d[1], azw = d[2] - c.g, st = d[3];
+    const float axw = m.div(r02 * fsum, c.m), ayw = m.div(r12 * fsum, c.m);
+    const float azw = m.div(r22 * fsum, c.m) - c.g, st = m.div(sin_t, sn);
     const float nvx = s.vx + c.pyb_dt * axw, nvy = s.vy + c.pyb_dt * ayw;
     const float nvz = s.vz + c.pyb_dt * azw;
 
@@ -320,12 +260,10 @@ __device__ __forceinline__ void control_step(State& s, const VelConsts& c, const
     const float qw = turn ? ct * s.qw + st * mqw : s.qw;
     const float qn = m.root(qx * qx + qy * qy + qz * qz + qw * qw);
     m.divisor(qn);
-    float qd[4];
-    g.template map<4>(div, {qx, qy, qz, qw}, {qn, qn, qn, qn}, qd);
-    s.qx = qd[0];
-    s.qy = qd[1];
-    s.qz = qd[2];
-    s.qw = qd[3];
+    s.qx = m.div(qx, qn);
+    s.qy = m.div(qy, qn);
+    s.qz = m.div(qz, qn);
+    s.qw = m.div(qw, qn);
 
     // plane contact clamp; `pressed` reads the pre-clamp acceleration
     const bool below = npz < c.z_min;
@@ -340,19 +278,16 @@ __device__ __forceinline__ void control_step(State& s, const VelConsts& c, const
   }
 }
 
-// The work of one lane of K1: env lane / L, over the group of L lanes, from
-// in (30, E) to out (26, E). Each control step runs first with the fast
-// arithmetic `fast` (its guard reset every step); a warp in which any operand
-// fell outside the fast classes recomputes the step from its saved state with
-// LibraryMath (every lane of a warp takes part in the shuffles), to the same
-// bits. Returns the number of steps this lane's warp recomputed.
-template <int L, class Fast>
+// The work of one lane of K1, one env, from in (30, E) to out (26, E).
+// Each control step runs first with the fast arithmetic `fast` (its guard
+// reset every step); a warp in which any operand fell outside the fast
+// classes recomputes the step from its saved state with LibraryMath, to the
+// same bits. Returns the number of steps this lane's warp recomputed.
+template <class Fast>
 __device__ __forceinline__ int rollout_lane(const float* __restrict__ in, float* __restrict__ out,
                                             long long E, const VelConsts& c, int n_substeps,
                                             int num_steps, Fast& fast) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long env = lane / L;
-  const Group<L> g{(int)(lane % L)};
+  const long long env = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long e = env < E ? env : E - 1;
 
   State s;
@@ -382,12 +317,12 @@ __device__ __forceinline__ int rollout_lane(const float* __restrict__ in, float*
   for (int t = 0; t < num_steps; ++t) {
     State next = s;
     fast.guard = fresh;
-    control_step(next, c, g, tvx, tvy, tvz, n_substeps, fast);
+    control_step(next, c, tvx, tvy, tvz, n_substeps, fast);
     if (__any_sync(kAll, fast.guard.rare())) {
       ++replayed;
       next = s;
       LibraryMath lib;
-      control_step(next, c, g, tvx, tvy, tvz, n_substeps, lib);
+      control_step(next, c, tvx, tvy, tvz, n_substeps, lib);
     }
     s = next;
   }
@@ -398,9 +333,7 @@ __device__ __forceinline__ int rollout_lane(const float* __restrict__ in, float*
                                     s.rpm[3], s.ip[0], s.ip[1], s.ip[2], s.ir[0], s.ir[1],
                                     s.ir[2], s.lr[0], s.lr[1], s.lr[2]};
 #pragma unroll
-  for (int k = 0; k < kStateRows; ++k) {
-    if (k % L == g.j) out[k * E + env] = result[k];
-  }
+  for (int k = 0; k < kStateRows; ++k) out[k * E + env] = result[k];
   return replayed;
 }
 

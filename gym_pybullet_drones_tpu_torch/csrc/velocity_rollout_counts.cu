@@ -1,9 +1,8 @@
-// K1's counting build: the step of K1 (csrc/velocity_rollout.cuh) at one lane
-// an env, with a fast arithmetic that also counts the operands it meets. For
-// tests and scripts (ops/velocity_rollout.velocity_rollout_counts), in a
-// library of its own: the cells' library (csrc/velocity_rollout.cu) holds no
-// counter. Built with K1's flags (-fmad=false), so its result is K1's bit for
-// bit; the operands are the same at every lane count, so are the counts.
+// K1's counting build: the step of K1 (csrc/velocity_rollout.cuh), with a
+// fast arithmetic that also counts the operands it meets. For tests and
+// scripts (ops/velocity_rollout.velocity_rollout_counts), in a library of its
+// own: the cells' library (csrc/velocity_rollout.cu) holds no counter. Built
+// with K1's flags (-fmad=false), so its result is K1's bit for bit.
 //
 // Interface: plain C, loaded with ctypes. The launch goes on the caller's
 // stream; the function returns cudaGetLastError().
@@ -18,9 +17,8 @@ namespace {
 // outside the fast classes, and env-steps recomputed with the library.
 enum { kZeroNum, kZeroRad, kZeroAtan2, kSmallAngle, kFallback, kReplayed, kNumCounts };
 
-// FastMath that counts each operation of its lane's env: at one lane an env
-// every operation is the lane's own. A recomputed step's operations are
-// counted as the fast step met them.
+// FastMath that counts each operation of its lane's env. A recomputed step's
+// operations are counted as the fast step met them.
 struct CountingMath : FastMath {
   unsigned long long n[kNumCounts] = {};
   __device__ __forceinline__ float div(float a, float b) {
@@ -54,7 +52,7 @@ velocity_rollout_counted_kernel(const float* __restrict__ in, float* __restrict_
                                 long long E, VelConsts c, int n_substeps, int num_steps,
                                 unsigned long long* __restrict__ counts) {
   CountingMath fast{{step_guard(c)}};
-  fast.n[kReplayed] = rollout_lane<1>(in, out, E, c, n_substeps, num_steps, fast);
+  fast.n[kReplayed] = rollout_lane(in, out, E, c, n_substeps, num_steps, fast);
   // Lanes past the ragged edge repeat the last env: they count nothing.
   if ((long long)blockIdx.x * blockDim.x + threadIdx.x >= E) return;
 #pragma unroll
@@ -66,12 +64,11 @@ velocity_rollout_counted_kernel(const float* __restrict__ in, float* __restrict_
 }  // namespace
 
 // K1's counting build: out as K1's, and counts (kNumCounts uint64, zeroed by
-// the caller) gains the counts of every env and step, at one lane an env; a
-// recomputed env-step counts once for each env of its warp of 32 envs.
+// the caller) gains the counts of every env and step; a recomputed env-step counts once for each env of its warp of 32 envs.
 extern "C" int velocity_rollout_counted(const void* in, void* out, long long E,
                                         const void* consts, int n_consts, int n_substeps,
                                         int num_steps, void* counts, void* stream) {
-  if (!launch_args_ok(E, n_consts, n_substeps, num_steps, 1)) return (int)cudaErrorInvalidValue;
+  if (!launch_args_ok(E, n_consts, n_substeps, num_steps)) return (int)cudaErrorInvalidValue;
   if (E == 0) return (int)cudaSuccess;
   VelConsts c;
   memcpy(&c, consts, sizeof(VelConsts));

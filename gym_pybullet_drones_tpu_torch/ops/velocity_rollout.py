@@ -5,9 +5,8 @@
 package's layout at this boundary: a dict of (E,) float32 columns keyed by
 ``SOA_KEYS``, and the action a dict of (E,) columns ``ax, ay, az, amag``.
 
-* On CUDA tensors it launches K1 (``csrc/velocity_rollout.cu``: each env
-  laid over a group of ``choose_lanes(E)`` lanes of a warp, the whole time
-  loop in registers), which replaces the TPU kernel
+* On CUDA tensors it launches K1 (``csrc/velocity_rollout.cu``: one lane of
+  a warp an env, the whole time loop in registers), which replaces the TPU kernel
   ``make_velocity_rollout_pallas`` (gym_pybullet_drones_tpu/ops/
   velocity_pallas.py). A failed build or launch raises.
 * On CPU tensors it runs the plain version, a Python loop of
@@ -40,13 +39,6 @@ COUNTS_KERNEL = "velocity_rollout_counts"
 # Whether this process has launched K1 (the set-up span ``k1.first_launch``):
 # the span's own, as callers reset ``velocity_rollout_cuda.launches``.
 _first_launch_done = False
-# The lane counts an env can be laid over (csrc/velocity_rollout.cu): no
-# stage of the step has more than four independent operations.
-LANES = (1, 2, 4)
-# Warps the launcher lets the lanes add up to: about two for each of an
-# H100's 132 x 4 schedulers (a constant, so that the choice never depends on
-# the card; the result does not depend on it either).
-_K1_WARPS = 1024
 # What K1's counting build counts (csrc/velocity_rollout_counts.cu, in this
 # order), over all envs and control steps: divisions with a zero numerator,
 # roots of a zero and atan2 of a zero y over a positive x, which its fast step
@@ -55,17 +47,6 @@ _K1_WARPS = 1024
 # the fast step's classes; and env-steps recomputed with the library.
 RN_COUNTS = ("zero_numerator", "zero_radicand", "zero_atan2", "small_angle", "fallback",
              "replayed")
-
-
-def choose_lanes(E: int) -> int:
-    """The lanes K1 lays each of ``E`` envs over: the most of ``LANES`` with
-    which the grid stays within ``_K1_WARPS`` warps, at least one. A warp
-    alone takes as long as one per scheduler, so more lanes shorten each
-    env's chain until the schedulers fill; past about two warps a scheduler
-    the lanes' repeated serial work costs more than they save (PERF.md, the
-    scaling line)."""
-    fit = [L for L in LANES if E * L <= 32 * _K1_WARPS]
-    return max(fit, default=1)
 
 
 def velocity_rollout_plain(consts, ctrl_dt, pyb_dt, n_substeps, speed_limit, num_steps,
@@ -102,13 +83,13 @@ _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, c
 
 @functools.cache
 def _library():
-    """K1's library, whose one C entry point is ``velocity_rollout`` (its
-    ``lanes`` and the stream after ``_ARGS``), built at first use and typed
+    """K1's library, whose one C entry point is ``velocity_rollout`` (the
+    stream after ``_ARGS``), built at first use and typed
     once (the set-up span ``k1.load``: hashing the sources, nvcc where no
     library matches, loading it)."""
     with _spans.setup_span("k1.load"):
         lib = ctypes.CDLL(_build.build(KERNEL))
-    lib.velocity_rollout.argtypes = _ARGS + [ctypes.c_int, ctypes.c_void_p]
+    lib.velocity_rollout.argtypes = _ARGS + [ctypes.c_void_p]
     lib.velocity_rollout.restype = ctypes.c_int
     return lib
 
@@ -125,9 +106,9 @@ def _counts_library():
     return lib
 
 
-def _operands(soa, action, n_substeps, num_steps, lanes):
+def _operands(soa, action, n_substeps, num_steps):
     """K1's checked operands: the packed (30, E) input, an empty (26, E)
-    output, E and the lanes an env is laid over."""
+    output and E."""
     cols = [soa[k] for k in SOA_KEYS] + [action[k] for k in ACTION_KEYS]
     E = cols[0].shape[0] if cols[0].ndim == 1 else -1
     device = cols[0].device
@@ -141,28 +122,21 @@ def _operands(soa, action, n_substeps, num_steps, lanes):
                              f"{tuple(x.shape)}")
     if n_substeps < 0 or num_steps < 0:
         raise ValueError("n_substeps and num_steps must be non-negative")
-    lanes = choose_lanes(E) if lanes is None else lanes
-    if lanes not in LANES:
-        raise ValueError(f"K1 lays an env over one of {LANES} lanes; got {lanes}")
     packed = torch.stack(cols)  # (30, E), contiguous
     out = torch.empty((len(SOA_KEYS), E), dtype=torch.float32, device=device)
     if not (packed.is_contiguous() and out.is_contiguous()):
         raise ValueError("K1 needs contiguous (30, E) input and (26, E) output")
-    return packed, out, E, lanes
+    return packed, out, E
 
 
 def velocity_rollout_cuda(consts, ctrl_dt, pyb_dt, n_substeps, speed_limit, num_steps,
-                          soa: Dict[str, torch.Tensor], action: Dict[str, torch.Tensor],
-                          lanes=None):
+                          soa: Dict[str, torch.Tensor], action: Dict[str, torch.Tensor]):
     """Launch K1 on CUDA float32 columns; ``velocity_rollout_cuda.launches``
-    counts the launches. ``lanes``: the lanes an env is laid over, one of
-    ``LANES`` (``choose_lanes(E)`` by default); the result is the same bit
-    for bit whatever it is, so only the tests and timings set it. The call's
-    host time is the span ``k1.call``; the process's first launch, where CUDA
+    counts the launches. The call's host time is the span ``k1.call``; the process's first launch, where CUDA
     loads K1's module, the set-up span ``k1.first_launch``."""
     global _first_launch_done
     with _spans.span("k1.call"):
-        packed, out, E, lanes = _operands(soa, action, n_substeps, num_steps, lanes)
+        packed, out, E = _operands(soa, action, n_substeps, num_steps)
         device = out.device
         fn = _library().velocity_rollout
         host = _pack_consts(consts, ctrl_dt, pyb_dt, speed_limit)
@@ -171,7 +145,7 @@ def velocity_rollout_cuda(consts, ctrl_dt, pyb_dt, n_substeps, speed_limit, num_
             stream = torch.cuda.current_stream(device).cuda_stream
             with _spans.setup_span("k1.first_launch") if first else _spans.OFF:
                 rc = fn(packed.data_ptr(), out.data_ptr(), E, ctypes.addressof(host), len(host),
-                        n_substeps, num_steps, lanes, stream)
+                        n_substeps, num_steps, stream)
         _first_launch_done = True
         if rc != 0:
             raise RuntimeError(f"K1 launch failed: cudaError {rc}")
@@ -187,14 +161,13 @@ def velocity_rollout_counts(consts, ctrl_dt, pyb_dt, n_substeps, speed_limit, nu
                             action: Dict[str, torch.Tensor]) -> Dict[str, int]:
     """Run K1's counting build over the same operands as
     ``velocity_rollout_cuda`` and return its counts, ``RN_COUNTS``, over all
-    envs and steps. It lays each env over one lane, so every operation of an
-    env counts once, as it would at any lane count (the operands are the same
-    bit for bit); a recomputed step's operations count as its fast attempt met
-    them, and ``replayed`` counts env-steps recomputed with the library in
-    warps of 32 envs (a warp recomputes a step for all of its envs). For tests
-    and scripts: its library is built and loaded here, at the first call, and
-    the main path never loads it."""
-    packed, out, E, _ = _operands(soa, action, n_substeps, num_steps, 1)
+    envs and steps. Every operation of an env counts once; a recomputed
+    step's operations count as its fast attempt met them, and ``replayed``
+    counts env-steps recomputed with the library in warps of 32 envs (a warp
+    recomputes a step for all of its envs). For tests and scripts: its
+    library is built and loaded here, at the first call, and the main path
+    never loads it."""
+    packed, out, E = _operands(soa, action, n_substeps, num_steps)
     counts = torch.zeros(len(RN_COUNTS), dtype=torch.int64, device=out.device)
     host = _pack_consts(consts, ctrl_dt, pyb_dt, speed_limit)
     fn = _counts_library().velocity_rollout_counted

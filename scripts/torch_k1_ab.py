@@ -7,12 +7,9 @@ Times the K1 of the ``gym_pybullet_drones_tpu_torch`` package found on the
 path, so run it once per tree, in turns (A, B, B, A), in one run on one
 card. The scaling line: E = 32, 4096, 16384 and 65536 envs from
 ``batch_reset`` with chip_smoke.py's formation actions, T = 4800 control
-steps a launch, CUDA events (median of 5 launches after a warm-up). Where
-the tree's ``velocity_rollout_cuda`` takes ``lanes=`` (the lanes an env is
-laid over), also at every lane count it offers, and each of those against
-the launcher's own choice bit for bit at T = 8 (E = 4096). The split: at
-E = 4096, the same launch with no substeps (the DSLPID pipeline alone) and
-with one, at each lane count (or the tree's only layout).
+steps a launch, CUDA events (median of 5 launches after a warm-up). The
+split: at E = 4096, the same launch with no substeps (the DSLPID pipeline
+alone) and with one.
 
 ``--commands`` times K1 alone by command instead, at E = 4096 and 65536, T
 = 4800: the turned, compass and hover commands of the benchmark's formation
@@ -20,19 +17,16 @@ traffic (``benchmark/traffic.FormationHeadings``, seed ``SEED``), one command
 for all envs of a call, CUDA events (median of 5 launches after a warm-up).
 Where the tree has K1's counting build (``velocity_rollout_counts``), also its
 counts for one call of each command, as totals and per env and control step
-(the build lays each env over one lane; the counts of operations are the same
-at every lane count, and ``replayed`` counts env-steps recomputed in warps of
-32 envs).
+(``replayed`` counts env-steps recomputed in warps of 32 envs).
 
 ``--fmad`` also builds K1 with FMA contraction (``-fmad=true``) and prints
 its largest gap per column to the plain version at T = 8 and T = 240 (E =
 4096): the test of whether the closed loop leaves room for contraction.
 
 Prints one JSON line: the label, the card, nvidia-smi's name and power
-limit, and ms per launch by E (and lanes). Needs a CUDA card.
+limit, and ms per launch by E. Needs a CUDA card.
 """
 
-import inspect
 import json
 import statistics
 import subprocess
@@ -113,8 +107,6 @@ def main():
     sl = 0.03 * float(p.max_speed_kmh) * (1000.0 / 3600.0)
     args = (soa_consts(cp, p), cfg.ctrl_timestep, cfg.pyb_timestep, cfg.steps_per_ctrl, sl)
     params = p.to(dev)
-    lanes = getattr(vr, "LANES", None)
-    takes_lanes = "lanes" in inspect.signature(vr.velocity_rollout_cuda).parameters
     out = {"label": sys.argv[1] if len(sys.argv) > 1 else "", "device":
            torch.cuda.get_device_name(0), "smi": smi, "T": T_TIME, "ms": {}}
     if "--commands" in sys.argv:
@@ -127,30 +119,16 @@ def main():
     for E in SIZES:
         soa, act = soa_from_state(batch_reset(cfg, params, E, device=dev)), formation_actions(E, dev)
         cases[E] = (soa, act)
-        row = {"auto": event_ms(lambda: vr.velocity_rollout_cuda(*args, T_TIME, soa, act))}
-        if takes_lanes:
-            row["chosen lanes"] = vr.choose_lanes(E)
-            for L in lanes:
-                row[f"lanes {L}"] = event_ms(
-                    lambda: vr.velocity_rollout_cuda(*args, T_TIME, soa, act, lanes=L))
-        out["ms"][E] = row
-        print(f"E={E}: {json.dumps(row)}", flush=True)
+        out["ms"][E] = event_ms(lambda: vr.velocity_rollout_cuda(*args, T_TIME, soa, act))
+        print(f"E={E}: {out['ms'][E]:.4f} ms", flush=True)
     soa, act = cases[4096]
     split = {}
-    for L in (lanes if takes_lanes else (None,)):
-        for n_sub in (0, 1):
-            sub_args = args[:3] + (n_sub,) + args[4:]
-            kw = {} if L is None else {"lanes": L}
-            split[f"lanes {L or 'auto'}, {n_sub} substeps"] = event_ms(
-                lambda: vr.velocity_rollout_cuda(*sub_args, T_TIME, soa, act, **kw))
+    for n_sub in (0, 1):
+        sub_args = args[:3] + (n_sub,) + args[4:]
+        split[f"{n_sub} substeps"] = event_ms(
+            lambda: vr.velocity_rollout_cuda(*sub_args, T_TIME, soa, act))
     out["split at E=4096"] = split
     print(f"split at E=4096: {json.dumps(split)}", flush=True)
-    if takes_lanes:
-        ref = vr.velocity_rollout_cuda(*args, 8, soa, act)
-        out["bit-equal across lanes at T=8"] = {
-            L: all(torch.equal(ref[k], got[k]) for k in SOA_KEYS)
-            for L, got in ((L, vr.velocity_rollout_cuda(*args, 8, soa, act, lanes=L))
-                           for L in lanes)}
     if "--fmad" in sys.argv:
         flags = _build.NVCC_FLAGS[vr.KERNEL]
         _build.NVCC_FLAGS[vr.KERNEL] = tuple("-fmad=true" if f == "-fmad=false" else f

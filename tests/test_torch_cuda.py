@@ -10,6 +10,7 @@ Elsewhere every test skips (the card is looked for inside a fixture, so all
 pytest workers collect the same tests)."""
 
 import importlib
+import importlib.util
 import json
 import os
 import re
@@ -72,14 +73,13 @@ def test_k1_matches_plain_version(cuda, E, T):
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-5, msg=k)
 
 
-@pytest.mark.parametrize("lanes", tro.LANES)
 @pytest.mark.parametrize("E", [33, 1000, 4097])
-def test_k1_equals_plain_version_bit_for_bit_at_every_lane_count(cuda, E, lanes):
-    """Each lane of an env's group runs the plain version's operations in its
-    order, so K1 equals its plain version bit for bit whatever the lanes;
-    ragged E (not a multiple of 32 / lanes) included."""
+def test_k1_equals_plain_version_bit_for_bit_at_every_lane_count(cuda, E):
+    """An env's lane runs the plain version's operations in their order, so
+    K1 equals its plain version bit for bit; ragged E (not a multiple of 32)
+    included. (K1 lays each env over one lane, its one lane count.)"""
     args, soa, act = _case(cuda, E)
-    got = tro.velocity_rollout_cuda(*args, 8, soa, act, lanes=lanes)
+    got = tro.velocity_rollout_cuda(*args, 8, soa, act)
     want = tro.velocity_rollout_plain(*args, 8, soa, act)
     torch.cuda.synchronize()
     for k in tsoa.SOA_KEYS:
@@ -107,22 +107,20 @@ def _command(device, E, kind):
 _PLAIN_240 = {}
 
 
-@pytest.mark.parametrize("lanes", tro.LANES)
 @pytest.mark.parametrize("kind", ["hover", "compass", "axis"])
 @pytest.mark.parametrize("E", [4096, 1004])
-def test_k1_equals_plain_version_bit_for_bit_on_formation_commands(cuda, E, kind, lanes):
+def test_k1_equals_plain_version_bit_for_bit_on_formation_commands(cuda, E, kind):
     """The commands whose zero and tiny operands reached the library's slow
     division, root and atan2f, which K1's fast step now takes inline
     (csrc/rn_math.cuh): every bit of the state after T = 240, the sign of a
-    zero and NaN payloads included (torch.equal takes -0 for +0), at every
-    lane count; E = 1004 is ragged at every lane count and keeps the
-    compass's quarter headings."""
+    zero and NaN payloads included (torch.equal takes -0 for +0); E = 1004 is
+    ragged and keeps the compass's quarter headings."""
     args, soa, _ = _case(cuda, E)
     act = _command(cuda, E, kind)
     if (E, kind) not in _PLAIN_240:
         _PLAIN_240[E, kind] = tro.velocity_rollout_plain(*args, 240, soa, act)
     want = _PLAIN_240[E, kind]
-    got = tro.velocity_rollout_cuda(*args, 240, soa, act, lanes=lanes)
+    got = tro.velocity_rollout_cuda(*args, 240, soa, act)
     torch.cuda.synchronize()
     for k in tsoa.SOA_KEYS:
         assert torch.equal(got[k].view(torch.int32), want[k].view(torch.int32)), k
@@ -148,12 +146,11 @@ def test_k1_counting_build_sees_zeros_taken_inline_and_no_fallback(cuda, E, kind
             assert counts[k] >= E * 240, counts
 
 
-@pytest.mark.parametrize("lanes", tro.LANES)
-def test_k1_recomputes_a_step_with_an_operand_outside_the_fast_classes(cuda, lanes):
+def test_k1_recomputes_a_step_with_an_operand_outside_the_fast_classes(cuda):
     """A quaternion component of 1e-35 (below 2^-102, where the library's
     division check fails) in a few envs: their warps recompute those steps
-    with the library (counted at one lane an env), and the state equals the
-    plain version's bit for bit at every lane count."""
+    with the library (counted by the counting build), and the state equals
+    the plain version's bit for bit."""
     E = 1004
     args, soa, _ = _case(cuda, E)
     soa = dict(soa, qx=soa["qx"].clone())
@@ -161,24 +158,23 @@ def test_k1_recomputes_a_step_with_an_operand_outside_the_fast_classes(cuda, lan
     act = _command(cuda, E, "hover")
     counts = tro.velocity_rollout_counts(*args, 48, soa, act)
     assert counts["fallback"] > 0 and counts["replayed"] > 0, counts
-    got = tro.velocity_rollout_cuda(*args, 48, soa, act, lanes=lanes)
+    got = tro.velocity_rollout_cuda(*args, 48, soa, act)
     want = tro.velocity_rollout_plain(*args, 48, soa, act)
     torch.cuda.synchronize()
     for k in tsoa.SOA_KEYS:
         assert torch.equal(got[k].view(torch.int32), want[k].view(torch.int32)), k
 
 
-@pytest.mark.parametrize("lanes", tro.LANES)
 @pytest.mark.parametrize("case", ["spin", "yaw_near_pi"])
-def test_k1_takes_the_angles_outside_the_small_class_to_the_library(cuda, case, lanes):
+def test_k1_takes_the_angles_outside_the_small_class_to_the_library(cuda, case):
     """``spin``: body rates of 400 rad/s in every 97th env put the substep's
     angle |w| pyb_dt / 2 past sincos_small_rn's class (|x| <= pi / 4), where
     sincosf's reduction is no longer the identity: their warps recompute
     those steps with the library. ``yaw_near_pi``: every env's yaw within
     1e-3 of +-pi through the quaternion, where sincos_rn's reduction takes
     the quadrants 2 and -2 and atan2_rn's x is negative: no step leaves the
-    fast classes (counted at one lane an env). Either way the state equals
-    the plain version's bit for bit at every lane count."""
+    fast classes (counted by the counting build). Either way the state
+    equals the plain version's bit for bit."""
     E = 1004
     args, soa, _ = _case(cuda, E)
     soa = dict(soa)
@@ -198,7 +194,7 @@ def test_k1_takes_the_angles_outside_the_small_class_to_the_library(cuda, case, 
         assert counts["fallback"] > 0 and counts["replayed"] > 0, counts
     else:
         assert counts["fallback"] == 0 and counts["replayed"] == 0, counts
-    got = tro.velocity_rollout_cuda(*args, 48, soa, act, lanes=lanes)
+    got = tro.velocity_rollout_cuda(*args, 48, soa, act)
     want = tro.velocity_rollout_plain(*args, 48, soa, act)
     torch.cuda.synchronize()
     for k in tsoa.SOA_KEYS:
@@ -272,8 +268,6 @@ def test_k1_rejects_what_it_does_not_take(cuda):
         tro.velocity_rollout_cuda(*args, 2, soa, {k: v[:10] for k, v in act.items()})
     with pytest.raises(ValueError, match="CUDA"):
         tro.velocity_rollout_cuda(*args, 2, soa, {k: v.cpu() for k, v in act.items()})
-    with pytest.raises(ValueError, match="lanes"):
-        tro.velocity_rollout_cuda(*args, 2, soa, act, lanes=3)
 
 
 # A fresh process with an empty build directory: builds and runs a K1 rollout,
@@ -332,8 +326,8 @@ def _sass_ops(lib):
 
 def test_k1_cells_library_holds_three_kernels_and_no_counter(cuda, tmp_path):
     """The library that ``make_velocity_rollout`` builds and loads has the one
-    entry point ``velocity_rollout`` and exactly the three K1 kernels (L = 1,
-    2, 4) with no atomic in their SASS; building and running the rollout
+    entry point ``velocity_rollout`` and exactly one kernel, K1's, with no
+    atomic in its SASS; building and running the rollout
     leaves the counting build unbuilt, unloaded and without an
     ``nvcc.velocity_rollout_counts`` span. Run in a fresh process with an
     empty build directory, so that no earlier test has built or loaded it;
@@ -356,11 +350,45 @@ def test_k1_cells_library_holds_three_kernels_and_no_counter(cuda, tmp_path):
 
     atomic = re.compile(r"(ATOM|RED)[GS]?")
     funcs = _sass_ops(out["lib"])
-    lanes = [re.search(r"velocity_rollout_kernelILi(\d)E", f) for f in funcs]
-    assert all(lanes) and sorted(m.group(1) for m in lanes) == ["1", "2", "4"], list(funcs)
+    assert len(funcs) == 1 and "velocity_rollout_kernel" in next(iter(funcs)), list(funcs)
     assert not [op for ops in funcs.values() for op in ops if atomic.fullmatch(op)]
     counting = _sass_ops(out["counts_lib"])
     assert [op for ops in counting.values() for op in ops if atomic.fullmatch(op)], list(counting)
+
+
+def _sass_time_loops(lib):
+    """{function: [opcode]} of each function's outermost loop (K1's time
+    loop), found as ``scripts/torch_sass.py`` finds loops."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_sass", os.path.join(repo, "scripts", "torch_sass.py"))
+    sass = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sass)
+    funcs, labels = sass.functions(lib)
+    out = {}
+    for name, insns in funcs.items():
+        lo, hi = max(sass.loops(insns, labels[name]), key=lambda r: r[1] - r[0])
+        out[name] = [sass.opcode(text) for addr, text in insns if lo <= addr <= hi]
+    return out
+
+
+# The float32 arithmetic and MUFU of K1's time loop as one lane an env built
+# it before the lanes went (the kernel at L = 1 of three, a loop of 1,937
+# instructions).
+_K1_LOOP_OPS = {"FADD": 337, "FMUL": 414, "FFMA": 295, "MUFU": 43}
+_K1_LOOP_MAX = 1937
+
+
+def test_k1_keeps_the_one_lane_time_loop_and_takes_no_shuffle(cuda):
+    """K1 has no shuffle anywhere; its time loop holds the arithmetic of the
+    one lane an env built before, opcode for opcode, in no more
+    instructions."""
+    lib = tro._library()._name
+    ((name, ops),) = _sass_ops(lib).items()
+    ((_, loop),) = _sass_time_loops(lib).items()
+    assert "SHFL" not in ops, name
+    assert {k: loop.count(k) for k in _K1_LOOP_OPS} == _K1_LOOP_OPS
+    assert len(loop) <= _K1_LOOP_MAX
 
 
 # ---------------- K2, K4, K5 (csrc/wake_pair_kernels.cu) ----------------
